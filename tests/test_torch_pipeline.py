@@ -1,0 +1,206 @@
+"""The port's slice as a whole against the JAX pipeline, on the CPU, plus the
+port's package rules.
+
+``api.test_model``-sized dims (state 32, 2 heads, 2 layers, n_audio_ctx
+1500), JAX weights carried across, f32, the README recipe with the
+ground-truth transcript, a 4-utterance synthetic corpus: the port's
+``align_batch`` and ``run_dataset`` must give the same words and the same
+boundaries as the JAX pipeline, for top-k and mean aggregation."""
+
+import dataclasses
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from whisper_char_alignment_tpu import api as japi
+from whisper_char_alignment_tpu import runner as jrunner
+from whisper_char_alignment_tpu.config import AlignConfig as JaxAlignConfig
+from whisper_char_alignment_tpu.data.dataset import TIMIT as JaxTIMIT
+from whisper_char_alignment_tpu.data.synthetic import make_timit_corpus
+from whisper_char_alignment_tpu_torch import api as tapi
+from whisper_char_alignment_tpu_torch import runner as trunner
+from whisper_char_alignment_tpu_torch.config import AlignConfig, ModelDims
+from whisper_char_alignment_tpu_torch.data.dataset import TIMIT
+from whisper_char_alignment_tpu_torch.models import convert as tconvert
+from whisper_char_alignment_tpu_torch.ops import _lib
+from whisper_char_alignment_tpu_torch.text.tokenizer import get_test_tokenizer
+from whisper_char_alignment_tpu_torch.utils.device import resolve_device
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def setup(tmp_path_factory):
+    jm = japi.test_model(0)
+    model = tconvert.model_from_state_dict(
+        tconvert.params_from_jax(jax.tree.map(np.asarray, jm.params)),
+        ModelDims(**dataclasses.asdict(jm.dims)), device="cpu")
+    scp = make_timit_corpus(str(tmp_path_factory.mktemp("corpus")), n_utts=4,
+                            seconds=(1.0, 2.0), words_per_utt=(3, 5), seed=0)
+    return jm, model, scp
+
+
+def _cfg(cls, aggr):
+    return cls.recommended(model="test", batch_size=4, use_gt_transcript=True,
+                           aggr=aggr, decode_sample_len=8)
+
+
+def _same_alignments(ours, theirs):
+    assert len(ours) == len(theirs)
+    for a, b in zip(ours, theirs):
+        assert a.fid == b.fid
+        assert a.words == b.words and len(a.words) >= 2
+        assert a.transcription == b.transcription
+        np.testing.assert_array_equal(a.start_times, b.start_times)
+        np.testing.assert_array_equal(a.end_times, b.end_times)
+
+
+@pytest.mark.parametrize("aggr", ["topk", "mean"])
+def test_slice_matches_jax_pipeline(setup, aggr):
+    jm, model, scp = setup
+    jp = jrunner.AlignmentPipeline(jm.params, jm.dims, jm.tokenizer,
+                                   _cfg(JaxAlignConfig, aggr))
+    tp = trunner.AlignmentPipeline(model, get_test_tokenizer(),
+                                   _cfg(AlignConfig, aggr), device="cpu")
+    before = _lib.launch_counts()
+    _same_alignments(list(tp.run_dataset(TIMIT(scp))),
+                     list(jp.run_dataset(JaxTIMIT(scp), progress=False)))
+    batch = [TIMIT(scp)[i] for i in range(4)]
+    ours = tp.align_batch(batch, return_matrix=True)
+    theirs = jp.align_batch([JaxTIMIT(scp)[i] for i in range(4)],
+                            return_matrix=True)
+    _same_alignments(ours, theirs)
+    for a, b in zip(ours, theirs):
+        np.testing.assert_allclose(a.matrix, b.matrix, rtol=1e-5, atol=1e-6)
+    assert _lib.launch_counts() == before  # the CPU path launches nothing
+    assert set(tp.stage_seconds) >= {"mel", "encoder", "decode", "capture",
+                                     "align"}
+    # transcripts of the decode pass agree too
+    assert tp.transcribe_batch(batch)[0] == jp.transcribe_batch(
+        [JaxTIMIT(scp)[i] for i in range(4)])[0]
+
+
+def test_api_align_matches_jax(setup):
+    jm, model, scp = setup
+    u = TIMIT(scp)[1]
+    want = japi.align(jm, u.audio, gt_text=u.text, use_gt_transcript=True,
+                      decode_sample_len=8)
+    got = tapi.align(tapi.Model(model=model, tokenizer=get_test_tokenizer(),
+                                name="test"),
+                     u.audio, gt_text=u.text, use_gt_transcript=True,
+                     decode_sample_len=8, device="cpu")
+    _same_alignments([got], [want])
+
+
+def test_test_model_is_seeded_and_refuses_a_missing_gpu(monkeypatch):
+    a = tapi.test_model(0, device="cpu")
+    b = tapi.test_model(0, device="cpu")
+    assert a.dims.n_audio_ctx == 1500 and a.dims.n_text_state == 32
+    assert torch.equal(a.model.decoder.token_embedding.weight,
+                       b.model.decoder.token_embedding.weight)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tapi.test_model(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tapi.align(a, np.zeros(16000, np.float32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    assert resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("override", [
+    dict(decode_kv_int8=True), dict(decode_kv_int8_guarded=True),
+    dict(decode_frame_bucket=128), dict(encoder_int8=True),
+    dict(default_whisper_timing=True), dict(data_parallel=2),
+    dict(tensor_parallel=2), "mel_pallas", "mesh"])
+def test_unported_pipeline_options_raise(setup, override, monkeypatch):
+    _, model, _ = setup
+    kw = {}
+    cfg = AlignConfig.recommended(model="test")
+    if override == "mel_pallas":
+        monkeypatch.setenv("WCA_MEL_IMPL", "pallas")
+    elif override == "mesh":
+        kw["mesh"] = object()
+    else:
+        cfg = dataclasses.replace(cfg, **override)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        trunner.AlignmentPipeline(model, get_test_tokenizer(), cfg,
+                                  device="cpu", **kw)
+
+
+def test_pack_fixed_batch_matches_jax():
+    class U:
+        pass
+
+    utts = [U(), U(), U()]
+    items = [(utts[2], [5, 6, 7], 900), (utts[0], [1, 2], 3000)]
+    want = jrunner.pack_fixed_batch(items, utts, 4, 8, 99, 1500)
+    got = trunner.pack_fixed_batch(items, utts, 4, 8, 99, 1500)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_wire_is_int16_for_pcm_sources(setup):
+    _, _, scp = setup
+    utts = [TIMIT(scp)[i] for i in range(2)]
+    assert all(trunner._utt_wire_i16(u) is not None for u in utts)
+    jutts = [JaxTIMIT(scp)[i] for i in range(2)]
+    for a, b in zip(utts, jutts):
+        np.testing.assert_array_equal(trunner._utt_wire_i16(a),
+                                      jrunner._utt_wire_i16(b))
+    odd = dataclasses.replace(utts[0], audio=utts[0].audio + 1e-7)
+    assert trunner._utt_wire_i16(odd) is None
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    mods = ["api", "runner", "align.timing", "audio.mel", "audio.resample",
+            "audio.wav", "config", "constants", "data.dataset",
+            "data.synthetic", "models.convert", "models.decoding",
+            "models.whisper", "ops.dtw", "ops.dtw_cuda", "ops.encoder_attn_cuda",
+            "ops.medfilt", "ops.qkpost_cuda", "ops._lib", "text.bpe",
+            "text.numwords", "text.retokenize", "text.tokenizer",
+            "utils.device", "utils.unported"]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module('whisper_char_alignment_tpu_torch.' + m)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'whisper_char_alignment_tpu'\n"
+        "       or m.startswith('whisper_char_alignment_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "clean" in out.stdout
+    pkg = os.path.join(REPO, "whisper_char_alignment_tpu_torch")
+    for root, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                src = open(os.path.join(root, f)).read()
+                assert "import jax" not in src and "from jax" not in src, f
+                assert "whisper_char_alignment_tpu." not in src.replace(
+                    "whisper_char_alignment_tpu_torch", ""), f
+    smoke = open(os.path.join(REPO, "chip_smoke.py")).read()
+    assert "import jax" not in smoke and "from jax" not in smoke
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    for cwd, script in ((REPO, os.path.join(REPO, "chip_smoke.py")),
+                        (str(tmp_path), str(tmp_path / "chip_smoke.py"))):
+        if cwd != REPO:
+            shutil.copy(os.path.join(REPO, "chip_smoke.py"), script)
+        out = subprocess.run([sys.executable, script], cwd=cwd, env=env,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0
+        assert '"ok": true' not in out.stdout

@@ -1,0 +1,350 @@
+"""Greedy autoregressive transcription with Whisper's decoding rules.
+
+Port of the greedy case of ``whisper_char_alignment_tpu/models/decoding.py``.
+Each step applies the published logit filters over the batch:
+
+1. SuppressBlank — " " and eot suppressed at the first sampled position;
+2. SuppressTokens — non-speech symbols + [transcribe, translate, sot,
+   sot_prev, sot_lm, no_speech] (the "-1" default suppress set);
+3. ApplyTimestampRules — no_timestamps always suppressed; timestamps come in
+   pairs; timestamps are monotonic; the first sampled token must be a
+   timestamp (capped by max_initial_timestamp); and when the summed
+   timestamp probability exceeds the best text token, text is suppressed.
+
+The prompt is consumed in one teacher-forced prefill pass, then one
+``decode_step`` per position until every row has emitted eot (a host check
+each step) or the sample budget runs out. Beam search, temperature sampling,
+language detection and prompt/prefix conditioning are refused with
+``NotImplementedError`` (a later slice ports them).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import zlib
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..utils.unported import not_ported
+from . import whisper as wmodel
+
+_NEG_INF = float("-inf")
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodingOptions:
+    task: str = "transcribe"
+    language: Optional[str] = None
+    temperature: float = 0.0  # 0.0 = deterministic (greedy/beam); >0 samples
+    sample_len: Optional[int] = None
+    best_of: Optional[int] = None
+    beam_size: Optional[int] = None
+    patience: Optional[float] = None
+    length_penalty: Optional[float] = None
+    prompt: Optional[object] = None  # str | List[int]
+    prefix: Optional[object] = None  # str | List[int]
+    suppress_tokens: Optional[str] = "-1"
+    suppress_blank: bool = True
+    without_timestamps: bool = False
+    max_initial_timestamp: Optional[float] = 1.0
+
+
+@dataclasses.dataclass
+class DecodingResult:
+    language: str
+    tokens: List[int]
+    text: str
+    avg_logprob: float
+    no_speech_prob: float
+    temperature: float
+    compression_ratio: float
+    # sequence positions the loop reached for the whole batch (prompt
+    # positions count whether prefilled or stepped)
+    n_steps: int = 0
+    # kept for the JAX package's result shape; only its guarded modes fill it
+    min_margin: float = float("nan")
+
+
+def resolved_special_tokens(tokenizer, language: Optional[str],
+                            task: Optional[str]):
+    """(language_token, task_token) to patch into a sot sequence, or None
+    where no patch applies. Accepts full language names ('English'); raises
+    on unknown/unsupported languages."""
+    from ..text.tokenizer import normalize_language
+
+    lang_tok = task_tok = None
+    if language is not None and tokenizer.is_multilingual:
+        code = normalize_language(language)
+        codes = tokenizer.all_language_codes
+        if code not in codes:
+            raise ValueError(
+                f"language {language!r} is not supported by this tokenizer "
+                f"({len(codes)} languages)")
+        lang_tok = tokenizer.sot + 1 + codes.index(code)
+    if task == "translate" and tokenizer.is_multilingual:
+        task_tok = tokenizer.translate
+    return lang_tok, task_tok
+
+
+def _get_suppress_tokens(tokenizer, options: DecodingOptions) -> Tuple[int, ...]:
+    """The published _get_suppress_tokens semantics: a comma string or an int
+    iterable; a -1 anywhere expands to the non-speech symbols (and is
+    dropped); the task/sot specials are always added."""
+    opt = options.suppress_tokens
+    if isinstance(opt, str):
+        suppress = [int(t) for t in opt.split(",") if t.strip()]
+    elif opt:
+        suppress = [int(t) for t in opt]
+    else:
+        suppress = []
+    if -1 in suppress:
+        suppress = [t for t in suppress if t >= 0]
+        suppress.extend(tokenizer.non_speech_tokens)
+    suppress.extend([tokenizer.transcribe, tokenizer.translate, tokenizer.sot,
+                     tokenizer.sot_prev, tokenizer.sot_lm])
+    if tokenizer.no_speech is not None:
+        suppress.append(tokenizer.no_speech)
+    return tuple(sorted(set(suppress)))
+
+
+def apply_logit_filters(logits: torch.Tensor, cur_len: int,
+                        tokens: torch.Tensor, has_ts: torch.Tensor,
+                        last_ts_tok: torch.Tensor, suppress_mask: torch.Tensor,
+                        blank_mask: torch.Tensor, vocab_ids: torch.Tensor, *,
+                        sample_begin: int, ts_begin: int, eot: int,
+                        no_timestamps: int,
+                        max_initial_ts_index: Optional[int],
+                        use_timestamps: bool) -> torch.Tensor:
+    """The published per-step logit filters (SuppressBlank, SuppressTokens,
+    ApplyTimestampRules) over a (B, V) batch. ``cur_len`` is the position
+    being predicted; ``tokens`` (B, total) holds the consumed prefix."""
+    sampled = cur_len - sample_begin  # how many sampled tokens exist
+    first = sampled == 0
+    add_mask = suppress_mask + blank_mask if first else suppress_mask
+    logits = logits + add_mask[None]
+    if not use_timestamps:
+        return logits
+    last_tok = tokens[:, max(cur_len - 1, 0)]
+    penult_tok = tokens[:, max(cur_len - 2, 0)]
+    last_was = (last_tok >= ts_begin) & (sampled >= 1)
+    penult_was = (penult_tok >= ts_begin) | (sampled < 2)
+    is_ts_col = (vocab_ids >= ts_begin)[None]
+    is_text_col = (vocab_ids < eot)[None]
+    kill = (vocab_ids == no_timestamps)[None]
+    kill = kill | ((last_was & penult_was)[:, None] & is_ts_col)
+    kill = kill | ((last_was & ~penult_was)[:, None] & is_text_col)
+    # monotonic timestamps: forbid [ts_begin, ts_last)
+    ts_last = torch.where(last_was & ~penult_was, last_ts_tok, last_ts_tok + 1)
+    kill = kill | (has_ts[:, None] & is_ts_col
+                   & (vocab_ids[None] < ts_last[:, None]))
+    if first:
+        # the first sampled token must be a timestamp, capped
+        kill_first = ~is_ts_col
+        if max_initial_ts_index is not None:
+            kill_first = kill_first | (
+                vocab_ids > ts_begin + max_initial_ts_index)[None]
+        kill = kill | kill_first
+    logits = logits.masked_fill(kill, _NEG_INF)
+    # prefer timestamps when their total probability dominates any text
+    # token (raw-logit reductions: the shared log-softmax normalizer cancels)
+    ts_lp = torch.logsumexp(logits[:, ts_begin:], dim=-1)
+    max_text_lp = logits[:, :ts_begin].amax(dim=-1)
+    kill_text_all = ((ts_lp > max_text_lp)[:, None]
+                     & (vocab_ids < ts_begin)[None])
+    return logits.masked_fill(kill_text_all, _NEG_INF)
+
+
+def _decode_plan(dims, tokenizer, mel: torch.Tensor,
+                 options: Optional[DecodingOptions]):
+    """Host-side decode setup: the published initial token sequence,
+    sample_len clamping, suppress/blank masks and option validation.
+
+    Returns (options, single, mel (B, ...), sample_begin, sample_len,
+    sot_index, prompt_arr, suppress_mask, blank_mask, max_initial_ts_index).
+    """
+    options = options or DecodingOptions()
+    single = mel.ndim == 2
+    if single:
+        mel = mel[None]
+    if (options.language is None and tokenizer.is_multilingual
+            and len(tokenizer.sot_sequence) >= 2):
+        raise not_ported("language detection (language=None)", "decoding")
+    if options.prompt or options.prefix:
+        raise not_ported("prompt/prefix conditioning", "decoding")
+    if options.beam_size is not None or options.temperature > 0:
+        raise not_ported("beam search and temperature sampling", "decoding")
+
+    if options.without_timestamps:
+        sot_seq = list(tokenizer.sot_sequence_including_notimestamps)
+    else:
+        sot_seq = list(tokenizer.sot_sequence)
+    sample_len = options.sample_len or dims.n_text_ctx // 2
+    initial = list(sot_seq)
+    sample_begin = len(initial)
+    sot_index = initial.index(tokenizer.sot)
+    prompt_arr = np.asarray(initial, np.int64)
+    lang_pos = sot_index + 1  # ..., sot, language, task[, notimestamps]
+    lang_tok, task_tok = resolved_special_tokens(tokenizer, options.language,
+                                                 options.task)
+    if lang_tok is not None and len(sot_seq) >= 2:
+        prompt_arr[lang_pos] = lang_tok
+    if task_tok is not None and len(sot_seq) >= 3:
+        prompt_arr[lang_pos + 1] = task_tok
+    # the decoder's learned positions end at n_text_ctx
+    sample_len = max(0, min(sample_len, dims.n_text_ctx - sample_begin))
+
+    suppress = _get_suppress_tokens(tokenizer, options)
+    suppress_mask = np.zeros((dims.n_vocab,), np.float32)
+    suppress_mask[list(suppress)] = -np.inf
+    blank_mask = np.zeros((dims.n_vocab,), np.float32)
+    if options.suppress_blank:
+        blank_ids = tokenizer.encode(" ") + [tokenizer.eot]
+        blank_mask[blank_ids] = -np.inf
+
+    max_initial_ts_index = None
+    if options.max_initial_timestamp is not None and not options.without_timestamps:
+        max_initial_ts_index = round(options.max_initial_timestamp / 0.02)
+
+    # published option validation (whisper DecodingTask._verify_options)
+    if options.patience is not None and options.beam_size is None:
+        raise ValueError("patience requires beam_size to be given")
+    if options.length_penalty is not None and not (
+            0 <= options.length_penalty <= 1):
+        raise ValueError(
+            "length_penalty (alpha) should be a value between 0 and 1")
+    if options.best_of is not None:
+        raise ValueError(
+            "best_of with greedy sampling (temperature=0) is not compatible")
+
+    return (options, single, mel, sample_begin, sample_len, sot_index,
+            prompt_arr, suppress_mask, blank_mask, max_initial_ts_index)
+
+
+@torch.no_grad()
+def _decode_loop(model, xa: torch.Tensor, prompt: np.ndarray,
+                 suppress_mask: torch.Tensor, blank_mask: torch.Tensor, *,
+                 sample_begin: int, max_steps: int, ts_begin: int, eot: int,
+                 no_timestamps: int, no_speech: Optional[int],
+                 max_initial_ts_index: Optional[int], use_timestamps: bool,
+                 sot_index: int = 0):
+    """Greedy decode from encoder states xa (B, n_audio_ctx, d).
+
+    Returns (tokens (B, total), sum_logprobs (B,), no_speech_probs (B,),
+    n_steps, cross_kv): n_steps counts the sequence positions reached
+    (prompt positions included); cross_kv are the (L, B, H, hd, F) K/V the
+    loop used, reusable by the teacher-forced capture pass."""
+    dev = xa.device
+    b = xa.shape[0]
+    dims = model.dims
+    total = sample_begin + max_steps
+    vocab_ids = torch.arange(dims.n_vocab, device=dev)
+    cross_kv = wmodel.precompute_cross_kv(model, xa)
+    cache = wmodel.init_kv_cache(dims, b, total, dtype=model.dtype,
+                                 device=dev)
+    tokens = torch.full((b, total), eot, dtype=torch.long, device=dev)
+    tokens[:, :sample_begin] = torch.from_numpy(prompt).to(dev)
+
+    ns_prob = (torch.zeros(b, device=dev) if no_speech is not None
+               else torch.full((b,), float("nan"), device=dev))
+    start = 1
+    if sample_begin >= 2:
+        # positions 0..sample_begin-2 in one teacher-forced pass; the first
+        # loop iteration consumes the last prompt token
+        ns_at = (sot_index if (no_speech is not None
+                               and sot_index < sample_begin - 1) else None)
+        pf_logits, cache = wmodel.decode_prefill(
+            model, tokens[:, :sample_begin - 1], cache, cross_kv,
+            logits_at=ns_at)
+        if ns_at is not None:
+            ns_prob = torch.softmax(pf_logits, dim=-1)[:, no_speech]
+        start = sample_begin
+
+    finished = torch.zeros(b, dtype=torch.bool, device=dev)
+    sum_lp = torch.zeros(b, device=dev)
+    has_ts = torch.zeros(b, dtype=torch.bool, device=dev)
+    last_ts_tok = torch.zeros(b, dtype=torch.long, device=dev)
+    eot_t = torch.tensor(eot, device=dev)
+    i = start
+    while i < total and not bool(finished.all()):
+        logits, cache = wmodel.decode_step(model, tokens[:, i - 1:i], i - 1,
+                                           cache, cross_kv)
+        if no_speech is not None and i == sot_index + 1:
+            ns_prob = torch.softmax(logits, dim=-1)[:, no_speech]
+        is_prompt = i < sample_begin
+        filtered = apply_logit_filters(
+            logits, i, tokens, has_ts, last_ts_tok, suppress_mask, blank_mask,
+            vocab_ids, sample_begin=sample_begin, ts_begin=ts_begin, eot=eot,
+            no_timestamps=no_timestamps,
+            max_initial_ts_index=max_initial_ts_index,
+            use_timestamps=use_timestamps)
+        pos = min(i, total - 1)
+        if is_prompt:
+            next_tok = tokens[:, pos].clone()
+        else:
+            next_sampled = filtered.argmax(dim=-1)
+            # greedy picks the max: its log-softmax value is max - logsumexp
+            chosen_lp = (filtered.amax(dim=-1)
+                         - torch.logsumexp(filtered, dim=-1))
+            next_tok = torch.where(finished, eot_t, next_sampled)
+            sum_lp = torch.where(finished, sum_lp, sum_lp + chosen_lp)
+            sampled_ts = ~finished & (next_tok >= ts_begin)
+            has_ts = has_ts | sampled_ts
+            last_ts_tok = torch.where(sampled_ts, next_tok, last_ts_tok)
+            finished = finished | (next_tok == eot)
+        tokens[:, pos] = next_tok
+        i += 1
+    return tokens, sum_lp, ns_prob, i - 1, cross_kv
+
+
+@torch.no_grad()
+def decode(model, tokenizer, mel: torch.Tensor,
+           options: Optional[DecodingOptions] = None,
+           return_xa: bool = False, return_cross_kv: bool = False,
+           xa: Optional[torch.Tensor] = None, device=None):
+    """Transcribe a batch of mels (B, n_mels, 2*n_audio_ctx), or one
+    (n_mels, frames). Returns one DecodingResult per utterance (a single
+    result for unbatched input). ``return_xa`` adds the encoder states
+    (``(results, xa)``); ``return_cross_kv`` adds them and the loop's cross
+    K/V stacks (``(results, xa, cross_kv)``) for reuse by the capture pass.
+    ``xa`` supplies precomputed encoder states and skips the encoder."""
+    dev = wmodel._check_device(model, device)
+    dims = model.dims
+    (options, single, mel, sample_begin, sample_len, sot_index, prompt_arr,
+     suppress_mask, blank_mask, max_initial_ts_index) = _decode_plan(
+         dims, tokenizer, mel, options)
+    if xa is None:
+        xa = wmodel.encode_audio(model, mel.to(dev), device=dev.type)
+    tokens, sum_lp, ns_prob, n_steps, cross_kv = _decode_loop(
+        model, xa, prompt_arr,
+        torch.from_numpy(suppress_mask).to(dev),
+        torch.from_numpy(blank_mask).to(dev),
+        sample_begin=sample_begin, max_steps=sample_len,
+        ts_begin=tokenizer.timestamp_begin, eot=tokenizer.eot,
+        no_timestamps=tokenizer.no_timestamps, no_speech=tokenizer.no_speech,
+        max_initial_ts_index=max_initial_ts_index,
+        use_timestamps=not options.without_timestamps, sot_index=sot_index)
+
+    from ..text.tokenizer import normalize_language
+
+    tokens = tokens.cpu().numpy()
+    sum_lp = sum_lp.cpu().numpy()
+    ns_prob = ns_prob.cpu().numpy()
+    lang = normalize_language(options.language) or (tokenizer.language or "en")
+    results = []
+    for k in range(tokens.shape[0]):
+        seq = tokens[k, sample_begin:].tolist()
+        if tokenizer.eot in seq:
+            seq = seq[:seq.index(tokenizer.eot)]
+        text = tokenizer.decode(seq).strip()
+        avg_lp = sum_lp[k] / (len(seq) + 1)
+        ratio = len(text.encode()) / max(len(zlib.compress(text.encode())), 1)
+        results.append(DecodingResult(
+            language=lang, tokens=seq, text=text, avg_logprob=float(avg_lp),
+            no_speech_prob=float(ns_prob[k]), temperature=options.temperature,
+            compression_ratio=ratio, n_steps=int(n_steps)))
+    out = results[0] if single else results
+    if return_cross_kv:
+        return out, xa, cross_kv
+    return (out, xa) if return_xa else out

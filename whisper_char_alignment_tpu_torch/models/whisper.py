@@ -1,0 +1,438 @@
+"""Whisper encoder/decoder as PyTorch modules (port of ``whisper_char_alignment_tpu/models/whisper.py``).
+
+The module tree and parameter names are OpenAI whisper's own
+(``encoder.blocks.N.attn.query.weight``, ...), so an OpenAI ``.pt``
+checkpoint loads with ``load_state_dict`` as it is. Layers are an
+``nn.ModuleList`` walked by a Python loop, where the JAX package stacks them
+and scans.
+
+The functions below keep the JAX package's names and public layouts:
+attention stacks are (L, B, H, T, F), cross K/V (L, B, H, hd, F), the
+self-attention cache (L, B, H, hd, ctx). They run where the model's
+parameters lie; the compute dtype is the parameters' dtype (see
+:func:`cast_params`).
+
+Math parity notes (vs whisper.model and the JAX package):
+- attention scales q and k each by ``head_dim ** -0.25``; scores, their
+  softmax and P v are computed in float32 (the JAX package's
+  ``preferred_element_type=float32``), probabilities cast to the compute
+  dtype before P v;
+- GELU is the exact erf form; LayerNorm eps 1e-5, computed in float32; the
+  key projection has no bias; logits are tied to the token embedding.
+- the encoder self-attention runs through the CUDA kernel of
+  ``ops/encoder_attn_cuda.py``; each decoder layer's cross-attention logits
+  through the QK post-process kernel of ``ops/qkpost_cuda.py`` when a median
+  width is given, so the raw (L, B, H, T, F) logit stack is never held.
+- the self-attention cache is updated in place (one column per step), where
+  the JAX package returns a new cache.
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..config import ModelDims
+from ..ops.encoder_attn_cuda import encoder_self_attention
+from ..ops.qkpost_cuda import qk_postprocess
+from ..utils.device import resolve_device
+
+Cache = Dict[str, torch.Tensor]
+
+
+def sinusoids(length: int, channels: int,
+              max_timescale: float = 10000.0) -> np.ndarray:
+    """Fixed sinusoidal position embedding (whisper.model.sinusoids)."""
+    assert channels % 2 == 0
+    log_timescale_increment = np.log(max_timescale) / (channels // 2 - 1)
+    inv_timescales = np.exp(-log_timescale_increment * np.arange(channels // 2))
+    scaled_time = np.arange(length)[:, None] * inv_timescales[None, :]
+    return np.concatenate([np.sin(scaled_time), np.cos(scaled_time)],
+                          axis=1).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Modules (OpenAI whisper's names)
+# ---------------------------------------------------------------------------
+
+class MultiHeadAttention(nn.Module):
+    def __init__(self, n_state: int, n_head: int, **factory):
+        super().__init__()
+        self.n_head = n_head
+        self.query = nn.Linear(n_state, n_state, **factory)
+        self.key = nn.Linear(n_state, n_state, bias=False, **factory)
+        self.value = nn.Linear(n_state, n_state, **factory)
+        self.out = nn.Linear(n_state, n_state, **factory)
+
+
+class ResidualAttentionBlock(nn.Module):
+    def __init__(self, n_state: int, n_head: int, cross_attention: bool,
+                 **factory):
+        super().__init__()
+        self.attn = MultiHeadAttention(n_state, n_head, **factory)
+        self.attn_ln = nn.LayerNorm(n_state, **factory)
+        self.cross_attn = (MultiHeadAttention(n_state, n_head, **factory)
+                           if cross_attention else None)
+        self.cross_attn_ln = (nn.LayerNorm(n_state, **factory)
+                              if cross_attention else None)
+        self.mlp = nn.Sequential(nn.Linear(n_state, 4 * n_state, **factory),
+                                 nn.GELU(),
+                                 nn.Linear(4 * n_state, n_state, **factory))
+        self.mlp_ln = nn.LayerNorm(n_state, **factory)
+
+
+class AudioEncoder(nn.Module):
+    def __init__(self, dims: ModelDims, **factory):
+        super().__init__()
+        d = dims.n_audio_state
+        self.conv1 = nn.Conv1d(dims.n_mels, d, kernel_size=3, padding=1,
+                               **factory)
+        self.conv2 = nn.Conv1d(d, d, kernel_size=3, stride=2, padding=1,
+                               **factory)
+        self.register_buffer("positional_embedding", torch.empty(
+            dims.n_audio_ctx, d, **factory))
+        self.blocks = nn.ModuleList(
+            ResidualAttentionBlock(d, dims.n_audio_head, False, **factory)
+            for _ in range(dims.n_audio_layer))
+        self.ln_post = nn.LayerNorm(d, **factory)
+
+
+class TextDecoder(nn.Module):
+    def __init__(self, dims: ModelDims, **factory):
+        super().__init__()
+        d = dims.n_text_state
+        self.token_embedding = nn.Embedding(dims.n_vocab, d, **factory)
+        self.positional_embedding = nn.Parameter(
+            torch.empty(dims.n_text_ctx, d, **factory))
+        self.blocks = nn.ModuleList(
+            ResidualAttentionBlock(d, dims.n_text_head, True, **factory)
+            for _ in range(dims.n_text_layer))
+        self.ln = nn.LayerNorm(d, **factory)
+
+
+class Whisper(nn.Module):
+    """Whisper's parameter tree. Built with uninitialised weights: fill them
+    with :func:`init_params` or ``load_state_dict``."""
+
+    def __init__(self, dims: ModelDims, device=None, dtype=None):
+        super().__init__()
+        factory = {"device": device, "dtype": dtype}
+        self.dims = dims
+        self.encoder = AudioEncoder(dims, **factory)
+        self.decoder = TextDecoder(dims, **factory)
+
+    @property
+    def device(self) -> torch.device:
+        return self.decoder.positional_embedding.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.decoder.positional_embedding.dtype
+
+
+def init_params(model: Whisper, generator: torch.Generator) -> Whisper:
+    """Random weights with the JAX package's distributions
+    (whisper.py:53-124), drawn from ``generator`` on the model's device:
+    dense weights N(0, 1) * d_in**-0.5 and zero biases, LayerNorms at (1, 0),
+    convs N(0, 1) * 0.05, token embedding N * 0.02, decoder positions N *
+    0.01, sinusoidal encoder positions. The numbers differ from the JAX
+    package's for the same seed; tests carry JAX weights across instead."""
+
+    def normal_(t: torch.Tensor, std: float):
+        with torch.no_grad():
+            t.copy_(torch.randn(t.shape, generator=generator,
+                                device=t.device, dtype=torch.float32) * std)
+
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, nn.Linear):
+                normal_(mod.weight, mod.in_features ** -0.5)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, nn.LayerNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+            elif isinstance(mod, nn.Conv1d):
+                normal_(mod.weight, 0.05)
+                mod.bias.zero_()
+        enc, dec = model.encoder, model.decoder
+        enc.positional_embedding.copy_(torch.from_numpy(sinusoids(
+            *enc.positional_embedding.shape)))
+        normal_(dec.token_embedding.weight, 0.02)
+        normal_(dec.positional_embedding, 0.01)
+    return model
+
+
+def cast_params(model: Whisper, dtype: torch.dtype,
+                device: Optional[torch.device] = None) -> Whisper:
+    """The model in the compute dtype (and on ``device``): the same module
+    when it already is, else a converted copy, so the caller's module is left
+    as it was."""
+    device = model.device if device is None else torch.device(device)
+    if model.dtype == dtype and model.device == device:
+        return model
+    if model.device == device:
+        return copy.deepcopy(model).to(dtype=dtype)
+    out = Whisper(model.dims, device=device, dtype=dtype)
+    out.load_state_dict(model.state_dict())
+    return out
+
+
+def _check_device(model: Whisper, device) -> torch.device:
+    """Resolve an entry point's device and hold the model to it."""
+    dev = resolve_device(device)
+    if model.device.type != dev.type:
+        raise ValueError(f"model is on {model.device}, the call asks for "
+                         f"{dev}; move it with cast_params(model, dtype, "
+                         "device)")
+    return model.device
+
+
+# ---------------------------------------------------------------------------
+# Forward pieces
+# ---------------------------------------------------------------------------
+
+def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(),
+                        ln.bias.float(), 1e-5).to(x.dtype)
+
+
+def _linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    return F.linear(x, lin.weight, lin.bias)
+
+
+def _mlp(blk: ResidualAttentionBlock, x: torch.Tensor) -> torch.Tensor:
+    h = _layer_norm(blk.mlp_ln, x)
+    return _linear(blk.mlp[2], F.gelu(_linear(blk.mlp[0], h)))
+
+
+def _split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
+    b, t, d = x.shape
+    return x.reshape(b, t, n_head, d // n_head).transpose(1, 2)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, t, hd = x.shape
+    return x.transpose(1, 2).reshape(b, t, h * hd)
+
+
+def _attend(q, k_t, v_t, dtype, mask=None):
+    """q (B, H, T, hd) scaled; k_t, v_t (B, H, hd, S) with k scaled. Scores
+    (B, H, T, S) in f32, f32 softmax, probabilities in ``dtype``, P v in f32
+    then ``dtype``. Returns (out (B, H, T, hd), scores)."""
+    qk = torch.matmul(q.float(), k_t.float())
+    if mask is not None:
+        qk = qk + mask
+    w = torch.softmax(qk, dim=-1).to(dtype)
+    out = torch.matmul(w.float(), v_t.float().transpose(-1, -2)).to(dtype)
+    return out, qk
+
+
+def _qkv_attention(attn: MultiHeadAttention, x, xa, mask=None):
+    """Self- (xa None) or cross-attention over ``xa``; returns (out, qk f32)
+    where qk is the pre-softmax logits including the mask."""
+    n_head = attn.n_head
+    scale = (x.shape[-1] // n_head) ** -0.25
+    q = _split_heads(_linear(attn.query, x), n_head) * scale
+    src = x if xa is None else xa
+    k = _split_heads(_linear(attn.key, src), n_head) * scale
+    v = _split_heads(_linear(attn.value, src), n_head)
+    o, qk = _attend(q, k.transpose(-1, -2), v.transpose(-1, -2), x.dtype, mask)
+    return _linear(attn.out, _merge_heads(o)), qk
+
+
+def _cross_attention_kv(attn: MultiHeadAttention, x, ck, cv):
+    """Cross-attention against precomputed (B, H, hd, F) K/V."""
+    n_head = attn.n_head
+    scale = (x.shape[-1] // n_head) ** -0.25
+    q = _split_heads(_linear(attn.query, x), n_head) * scale
+    o, qk = _attend(q, ck.to(x.dtype) * scale, cv.to(x.dtype), x.dtype)
+    return _linear(attn.out, _merge_heads(o)), qk
+
+
+def _encoder_self_attention(attn: MultiHeadAttention, x, n_valid: int):
+    n_head = attn.n_head
+    scale = (x.shape[-1] // n_head) ** -0.25
+    q = (_split_heads(_linear(attn.query, x), n_head) * scale).contiguous()
+    k = (_split_heads(_linear(attn.key, x), n_head) * scale).contiguous()
+    v = _split_heads(_linear(attn.value, x), n_head).contiguous()
+    o = encoder_self_attention(q, k, v, n_valid=n_valid)
+    return _linear(attn.out, _merge_heads(o.to(x.dtype)))
+
+
+@torch.no_grad()
+def encode_audio(model: Whisper, mel: torch.Tensor,
+                 device=None) -> torch.Tensor:
+    """AudioEncoder: mel (B, n_mels, 2 * n_audio_ctx) -> (B, n_audio_ctx, d).
+    Each layer's self-attention goes through the encoder-attention kernel."""
+    dev = _check_device(model, device)
+    enc = model.encoder
+    x = mel.to(device=dev, dtype=model.dtype)
+    x = F.gelu(enc.conv1(x))
+    x = F.gelu(enc.conv2(x))
+    x = x.transpose(1, 2) + enc.positional_embedding
+    t = x.shape[1]
+    for blk in enc.blocks:
+        x = x + _encoder_self_attention(blk.attn, _layer_norm(blk.attn_ln, x),
+                                        n_valid=t)
+        x = x + _mlp(blk, x)
+    return _layer_norm(enc.ln_post, x)
+
+
+def _causal_mask(t: int, device) -> torch.Tensor:
+    return torch.full((t, t), float("-inf"), device=device).triu_(1)
+
+
+def _logits(model: Whisper, x: torch.Tensor) -> torch.Tensor:
+    return F.linear(x.float(), model.decoder.token_embedding.weight.float())
+
+
+@torch.no_grad()
+def decode_text(model: Whisper, tokens: torch.Tensor, xa: Optional[torch.Tensor],
+                return_qk: bool = True,
+                medfilt_width: Optional[int] = None,
+                frame_len: Optional[torch.Tensor] = None,
+                token_len: Optional[torch.Tensor] = None,
+                qk_scale: float = 1.0, return_logits: bool = True,
+                cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                device=None):
+    """TextDecoder teacher-forced over the full token sequence.
+
+    tokens (B, T) int, xa (B, F, d) encoder output (may be None when
+    ``cross_kv`` is given). Returns (logits (B, T, vocab) f32 or None, qk
+    (L, B, H, T, F) f32 or None).
+
+    With ``medfilt_width``, each layer's cross-attention logits go through
+    the QK post-process kernel inside the layer loop (median filter -> scaled
+    softmax -> pad-row zeroing), so the returned stack is the alignment-ready
+    attention and the raw logit stack is never held. ``cross_kv``: the
+    decode loop's (L, B, H, hd, F) K/V stacks, skipping the cross K/V
+    projections."""
+    dev = _check_device(model, device)
+    dec = model.decoder
+    dtype = model.dtype
+    tokens = tokens.to(dev)
+    t = tokens.shape[-1]
+    x = (dec.token_embedding.weight[tokens] + dec.positional_embedding[:t])
+    mask = _causal_mask(t, dev)
+    if xa is not None:
+        xa = xa.to(device=dev, dtype=dtype)
+    if medfilt_width is not None:
+        frame_len = frame_len.to(device=dev, dtype=torch.int32)
+        token_len = token_len.to(device=dev, dtype=torch.int32)
+    qks = []
+    for layer, blk in enumerate(dec.blocks):
+        a, _ = _qkv_attention(blk.attn, _layer_norm(blk.attn_ln, x), None, mask)
+        x = x + a
+        h = _layer_norm(blk.cross_attn_ln, x)
+        if cross_kv is not None:
+            c, qk = _cross_attention_kv(blk.cross_attn, h, cross_kv[0][layer],
+                                        cross_kv[1][layer])
+        else:
+            c, qk = _qkv_attention(blk.cross_attn, h, xa)
+        x = x + c
+        if return_qk:
+            if medfilt_width is not None:
+                qk = qk_postprocess(qk.contiguous(), frame_len, token_len,
+                                    medfilt_width, qk_scale)
+            qks.append(qk)
+        x = x + _mlp(blk, x)
+    qk_stack = torch.stack(qks) if return_qk else None
+    if not return_logits:
+        return None, qk_stack
+    return _logits(model, _layer_norm(dec.ln, x)), qk_stack
+
+
+# ---------------------------------------------------------------------------
+# Incremental decoding (KV cache)
+# ---------------------------------------------------------------------------
+
+def init_kv_cache(dims: ModelDims, batch: int, max_len: int,
+                  dtype: torch.dtype = torch.float32, device=None) -> Cache:
+    """Self-attention K/V cache, (L, B, H, hd, ctx) each, zero-filled."""
+    shape = (dims.n_text_layer, batch, dims.n_text_head, dims.n_text_head_dim,
+             max_len)
+    dev = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+@torch.no_grad()
+def precompute_cross_kv(model: Whisper, xa: torch.Tensor):
+    """Cross-attention K/V for every decoder layer, (L, B, H, hd, F) each
+    (un-quantized)."""
+    xa = xa.to(dtype=model.dtype)
+    ks, vs = [], []
+    for blk in model.decoder.blocks:
+        n_head = blk.cross_attn.n_head
+        ks.append(_split_heads(_linear(blk.cross_attn.key, xa),
+                               n_head).transpose(-1, -2))
+        vs.append(_split_heads(_linear(blk.cross_attn.value, xa),
+                               n_head).transpose(-1, -2))
+    return torch.stack(ks), torch.stack(vs)
+
+
+def _cached_layers(model: Whisper, x, cache: Cache, cross_kv, start: int,
+                   mask: Optional[torch.Tensor]):
+    """Run the decoder blocks over x (B, P, d) at positions start..start+P-1,
+    writing the P new self-attention K/V columns into ``cache`` in place.
+    Position row t attends to cache columns <= start + t (``mask`` holds the
+    causal part within the window; earlier columns are all visible)."""
+    dtype = model.dtype
+    p = x.shape[1]
+    end = start + p
+    cross_ks, cross_vs = cross_kv
+    for layer, blk in enumerate(model.decoder.blocks):
+        attn = blk.attn
+        n_head = attn.n_head
+        scale = (x.shape[-1] // n_head) ** -0.25
+        h = _layer_norm(blk.attn_ln, x)
+        q = _split_heads(_linear(attn.query, h), n_head) * scale
+        k_new = _split_heads(_linear(attn.key, h), n_head)
+        v_new = _split_heads(_linear(attn.value, h), n_head)
+        cache["k"][layer, :, :, :, start:end] = k_new.transpose(-1, -2)
+        cache["v"][layer, :, :, :, start:end] = v_new.transpose(-1, -2)
+        k_all = cache["k"][layer, :, :, :, :end].to(dtype) * scale
+        v_all = cache["v"][layer, :, :, :, :end].to(dtype)
+        a, _ = _attend(q, k_all, v_all, dtype, mask)
+        x = x + _linear(attn.out, _merge_heads(a))
+        c, _ = _cross_attention_kv(blk.cross_attn,
+                                   _layer_norm(blk.cross_attn_ln, x),
+                                   cross_ks[layer], cross_vs[layer])
+        x = x + c
+        x = x + _mlp(blk, x)
+    return x
+
+
+@torch.no_grad()
+def decode_step(model: Whisper, tokens: torch.Tensor, pos: int, cache: Cache,
+                cross_kv):
+    """One autoregressive decoder step: tokens (B, 1) at position ``pos``;
+    ``cache`` holds self-attention K/V for positions < pos and gains column
+    ``pos`` in place. Returns (logits (B, vocab) f32, cache)."""
+    dec = model.decoder
+    x = (dec.token_embedding.weight[tokens[:, 0]]
+         + dec.positional_embedding[pos])[:, None, :]
+    x = _cached_layers(model, x, cache, cross_kv, pos, None)
+    return _logits(model, _layer_norm(dec.ln, x[:, 0])), cache
+
+
+@torch.no_grad()
+def decode_prefill(model: Whisper, tokens: torch.Tensor, cache: Cache,
+                   cross_kv, logits_at: Optional[int] = None):
+    """Consume the decode prompt (B, P) in one teacher-forced pass, writing
+    cache columns 0..P-1. Returns (logits (B, vocab) f32 at position
+    ``logits_at``, or None to skip the lm head, cache)."""
+    dec = model.decoder
+    p = tokens.shape[1]
+    x = dec.token_embedding.weight[tokens] + dec.positional_embedding[:p]
+    x = _cached_layers(model, x, cache, cross_kv, 0,
+                       _causal_mask(p, x.device))
+    if logits_at is None:
+        return None, cache
+    return _logits(model, _layer_norm(dec.ln, x[:, logits_at])), cache

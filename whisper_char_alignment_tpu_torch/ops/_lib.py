@@ -1,0 +1,182 @@
+"""Build, load and count the port's CUDA kernels.
+
+All kernels live in ``csrc/*.cu`` and are built, at first use, into ONE shared
+library with a plain C interface that ``ctypes`` loads: each source compiles
+in its own ``nvcc`` process (all started together), then one ``nvcc -shared``
+links them. The library lands in ``build/torch_kernels/`` at the repository
+root, named by a hash of the sources and flags, so an edited source rebuilds
+and an unchanged one is reused. Nothing is built when a module is imported.
+
+Every C entry point takes its tensors as raw device pointers plus the current
+CUDA stream, launches without synchronising, and returns
+``cudaGetLastError()``; :func:`check` raises on a non-zero code. There is no
+fallback: a build or launch failure raises.
+
+``LAUNCHES`` counts kernel launches by name. A wrapper adds one where it
+launches its kernel and nowhere else, so a run can show that its main path
+went through the kernels (``reset_launches`` / ``launch_counts``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# widest median window the QK post-process kernel is instantiated for
+# (QK_MAX_WIDTH in csrc/qkpost.cu)
+QKPOST_MAX_WIDTH = 15
+
+LAUNCHES: Dict[str, int] = {"encoder_attn": 0, "qkpost": 0, "dtw_trace": 0,
+                            "dtw_backtrace": 0}
+
+_vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    # q, k, v, o, batch*heads, T, n_valid, head_dim, is_bf16, stream
+    "wca_encoder_attn": [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _vp],
+    # qk, out, frame_len, token_len, B, H, T, F, width, qk_scale, stream
+    "wca_qkpost": [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _f, _vp],
+    # x, trace, B, N, M, stream
+    "wca_dtw_trace": [_vp, _vp, _i, _i, _i, _vp],
+    # trace, n, m, jump, B, N, M, stream
+    "wca_dtw_backtrace": [_vp, _vp, _vp, _vp, _i, _i, _i, _vp],
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+build_info: Dict[str, object] = {}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(LAUNCHES)
+
+
+def _nvcc() -> str:
+    cands = [os.environ.get("NVCC"), shutil.which("nvcc"),
+             os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                          "bin", "nvcc")]
+    for c in cands:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found (set NVCC or CUDA_HOME); the CUDA "
+                       "kernels are built from csrc/ at first use")
+
+
+def _digest(paths) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in paths:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _build() -> Path:
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    headers = sorted(CSRC_DIR.glob("*.cuh"))
+    out = BUILD_DIR / f"libwca_kernels_{_digest(sources + headers)}.so"
+    if out.exists():
+        build_info.update(path=str(out), seconds=0.0, cached=True)
+        return out
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="build_", dir=BUILD_DIR))
+    t0 = time.monotonic()
+    procs = []
+    try:
+        objs = []
+        for src in sources:
+            obj = work / (src.stem + ".o")
+            objs.append(obj)
+            procs.append((src, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log = []
+        failed = []
+        for src, p in procs:
+            text, _ = p.communicate()
+            log.append(f"== {src.name}\n{text}")
+            if p.returncode != 0:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
+        tmp_so = work / out.name
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+             "-o", str(tmp_so), *map(str, objs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        (BUILD_DIR / "build.log").write_text("\n".join(log))
+        os.replace(tmp_so, out)
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    build_info.update(path=str(out), seconds=time.monotonic() - t0,
+                      cached=False, log="\n".join(log))
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The kernel library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(_build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.wca_error_string.argtypes = [ctypes.c_int]
+            lib.wca_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def count(name: str) -> None:
+    LAUNCHES[name] += 1
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        msg = library().wca_error_string(rc).decode()
+        raise RuntimeError(
+            f"CUDA kernel {name} failed to launch: error {rc} ({msg})")
+
+
+def require_cuda_or_cpu(*tensors: torch.Tensor) -> str:
+    """Device type shared by ``tensors``: 'cpu' selects the plain version,
+    'cuda' the kernel; anything else, or a mix, raises."""
+    kinds = {t.device for t in tensors}
+    if len(kinds) != 1:
+        raise ValueError(f"inputs are on several devices: {sorted(map(str, kinds))}")
+    kind = next(iter(kinds)).type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device type {kind!r}")
+    return kind

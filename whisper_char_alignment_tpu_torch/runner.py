@@ -1,0 +1,340 @@
+"""Batched alignment runner (port of ``whisper_char_alignment_tpu/runner.py``).
+
+One batch runs: int16/f32 wire -> log-mel on the GPU, the encoder, the greedy
+KV-cached decode, char re-tokenization on the host, one teacher-forced
+capture (each decoder layer's cross-attention through the QK post-process
+kernel) with head selection, aggregation and DTW, then word times on the
+host.
+
+The JAX package's software pipeline (a background wire-prep thread and
+``pipeline_depth`` batches in flight) hides host<->TPU transfers; here the
+stages run in a plain loop, one batch after the other. Results and their
+order are the same. Each stage's time is recorded in ``stage_seconds`` (the
+device is synchronised at the end of a stage, so the split is exact).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import os
+import time
+from collections import defaultdict
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from . import constants
+from .align import timing
+from .audio.mel import wire_to_mel
+from .config import AlignConfig
+from .data.dataset import Utterance, batch_iter
+from .models import decoding, whisper as wmodel
+from .text import retokenize
+from .utils.device import resolve_device
+from .utils.unported import not_ported
+
+
+@dataclasses.dataclass
+class UttAlignment:
+    fid: str
+    words: List[str]
+    start_times: np.ndarray
+    end_times: np.ndarray
+    transcription: str
+    text: str  # normalized ground-truth text
+    starts: List[float]
+    ends: List[float]
+    matrix: Optional[np.ndarray] = None
+    scores: Optional[list] = None
+    word_probabilities: Optional[List[float]] = None
+    skipped: bool = False
+
+
+def _pad_to_multiple(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _cross_kv_bytes(dims, batch: int, compute_dtype: torch.dtype) -> int:
+    """Device bytes of the decode loop's cross K/V stacks (K and V, all
+    layers)."""
+    itemsize = torch.empty((), dtype=compute_dtype).element_size()
+    return (2 * dims.n_text_layer * batch * dims.n_text_state
+            * dims.n_audio_ctx * itemsize)
+
+
+def pack_fixed_batch(items, utts, b_pad: int, t_bucket: int, eot: int,
+                     n_audio_ctx: int):
+    """Fixed-shape packing of the live utterances for the capture pass.
+
+    ``items``: ``(utt, tokens, max_frames)`` for the live (non-skip)
+    utterances; ``utts`` the original batch order (encoder-state rows).
+    Returns (tokens_arr, token_len, frame_len, xa_idx) NumPy arrays; rows >=
+    len(items) are pad rows whose outputs are discarded."""
+    tokens_arr = np.full((b_pad, t_bucket), eot, np.int32)
+    token_len = np.ones((b_pad,), np.int32)
+    frame_len = np.ones((b_pad,), np.int32)
+    # match rows to encoder states by OBJECT IDENTITY, never by fid: fids are
+    # not unique (a batch may carry one fid many times)
+    utt_index = {id(u): j for j, u in enumerate(utts)}
+    xa_idx = np.zeros((b_pad,), np.int32)
+    for i, (u, toks, max_frames) in enumerate(items):
+        tokens_arr[i, :len(toks)] = toks
+        token_len[i] = len(toks)
+        # clip to the model window (relevant only for sub-30 s test dims)
+        frame_len[i] = min(max(int(max_frames), 1), n_audio_ctx)
+        xa_idx[i] = utt_index[id(u)]
+    return tokens_arr, token_len, frame_len, xa_idx
+
+
+def _utt_wire_i16(u: Utterance):
+    """Per-utterance int16 wire form, cached on the Utterance: the int16
+    array when every sample is exactly representable as int16/32768 (16-bit
+    PCM sources), else None (the batch then ships float32)."""
+    cached = getattr(u, "_wire_i16", False)
+    if cached is not False:
+        return cached
+    scaled = u.audio * 32768.0
+    with np.errstate(invalid="ignore"):
+        as_i16 = scaled.astype(np.int16)
+    cached = as_i16 if np.array_equal(as_i16, scaled) else None
+    try:
+        u._wire_i16 = cached
+    except AttributeError:
+        pass  # slotted/frozen utterance stand-ins: just skip the cache
+    return cached
+
+
+def _reject_unported(cfg: AlignConfig) -> None:
+    if cfg.decode_kv_int8 or cfg.decode_kv_int8_guarded:
+        raise not_ported("decode_kv_int8 (int8 cross K/V)", "quantized")
+    if cfg.decode_frame_bucket > 0 or cfg.decode_frame_bucket_guarded:
+        raise not_ported("decode_frame_bucket (bucketed decode)", "quantized")
+    if cfg.encoder_int8:
+        raise not_ported("encoder_int8", "quantized")
+    if cfg.default_whisper_timing:
+        raise not_ported("default_whisper_timing", "default_timing")
+    if cfg.data_parallel > 1 or cfg.tensor_parallel > 1:
+        raise not_ported("data_parallel/tensor_parallel above 1", "parallel")
+    if os.environ.get("WCA_MEL_IMPL", "xla") == "pallas":
+        raise not_ported("WCA_MEL_IMPL=pallas (the mel kernel)", "mel_kernel")
+
+
+class AlignmentPipeline:
+    """End-to-end batched alignment with fixed-shape bucketing, on one GPU
+    (``device=None``) or on the CPU (``device="cpu"``)."""
+
+    def __init__(self, model: wmodel.Whisper, tokenizer, cfg: AlignConfig,
+                 device=None, compute_dtype=torch.float32,
+                 token_bucket: int = 32, mesh=None):
+        if mesh is not None:
+            raise not_ported("a device mesh", "parallel")
+        _reject_unported(cfg)
+        self.device = resolve_device(device)
+        self.compute_dtype = compute_dtype
+        self.dims = model.dims
+        self.tokenizer = tokenizer
+        self.cfg = cfg
+        self.token_bucket = token_bucket
+        # the compute-dtype copy every stage uses; the caller's module stays
+        self.model = wmodel.cast_params(model, self.compute_dtype, self.device)
+        self.sot_len = len(tokenizer.sot_sequence)
+        self.options = decoding.DecodingOptions(
+            language=tokenizer.language or "en",
+            sample_len=cfg.decode_sample_len or None)
+        self.stage_seconds = defaultdict(float)
+
+    @contextlib.contextmanager
+    def _stage(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.stage_seconds[name] += time.perf_counter() - t0
+
+    # -- stages ---------------------------------------------------------------
+
+    def _prep_wire(self, utts: Sequence[Utterance]) -> np.ndarray:
+        """A batch's wire buffer: (batch_size, wire_samples) int16 when every
+        utterance is exactly int16/32768-representable, else float32. Only
+        the batch's true audio length is sent, bucketed to 5 s steps; the
+        rest of the window is zero-padded on the device."""
+        b_pad = max(self.cfg.batch_size, len(utts))
+        n_samples = 2 * self.dims.n_audio_ctx * constants.HOP_LENGTH
+        sample_bucket = 5 * constants.SAMPLE_RATE
+        max_live = max(min(u.audio.size, n_samples) for u in utts)
+        wire_samples = min(n_samples, _pad_to_multiple(max_live, sample_bucket))
+        rows_i16 = [_utt_wire_i16(u) for u in utts]
+        use_i16 = all(r is not None for r in rows_i16)
+        wire = np.zeros((b_pad, wire_samples),
+                        np.int16 if use_i16 else np.float32)
+        for i, u in enumerate(utts):
+            src = rows_i16[i] if use_i16 else u.audio
+            n = min(src.size, wire_samples)
+            wire[i, :n] = src[:n]  # pad_or_trim semantics: first n samples
+        return wire
+
+    def _transcribe(self, utts: Sequence[Utterance]) -> dict:
+        """Mel, encoder and greedy decode for one batch."""
+        with self._stage("wire prep"):
+            wire = torch.from_numpy(self._prep_wire(utts)).to(self.device)
+        b_pad = wire.shape[0]
+        n_samples = 2 * self.dims.n_audio_ctx * constants.HOP_LENGTH
+        with self._stage("mel"):
+            mel = wire_to_mel(wire, self.dims.n_mels, total_samples=n_samples,
+                              compute_dtype=self.compute_dtype)
+        with self._stage("encoder"):
+            xa = wmodel.encode_audio(self.model, mel,
+                                     device=self.device.type)
+        # cross-K/V reuse: keep the decode loop's K/V alive through the
+        # capture pass when they fit the budget (WCA_REUSE_KV_MAX_BYTES,
+        # default 8e9 bytes); the JAX package divides it among the batches
+        # its pipeline keeps in flight, here one batch is live at a time
+        reuse_kv = (self.cfg.reuse_cross_kv
+                    and _cross_kv_bytes(self.dims, b_pad, self.compute_dtype)
+                    <= int(float(os.environ.get("WCA_REUSE_KV_MAX_BYTES",
+                                                8e9))))
+        with self._stage("decode"):
+            results, xa, cross_kv = decoding.decode(
+                self.model, self.tokenizer, mel, self.options,
+                return_cross_kv=True, xa=xa, device=self.device.type)
+        return dict(utts=utts, results=results, mel=mel, xa=xa,
+                    cross_kv=cross_kv if reuse_kv else None)
+
+    def transcribe_batch(self, utts: Sequence[Utterance]):
+        """(transcripts, mel batch, encoder states)."""
+        p = self._transcribe(utts)
+        return [r.text for r in p["results"][:len(utts)]], p["mel"], p["xa"]
+
+    def align_batch(self, utts: Sequence[Utterance],
+                    return_matrix: bool = False) -> List[UttAlignment]:
+        """One batch, end to end."""
+        return self._align(self._transcribe(utts), return_matrix=return_matrix)
+
+    def _align(self, tp: dict, return_matrix: bool = False
+               ) -> List[UttAlignment]:
+        cfg = self.cfg
+        tok = self.tokenizer
+        utts = tp["utts"]
+        xa = tp["xa"]
+        transcripts = [r.text for r in tp["results"][:len(utts)]]
+
+        with self._stage("retokenize"):
+            prepared = []
+            for u, transcription in zip(utts, transcripts):
+                text_norm = retokenize.remove_punctuation(u.text)
+                tr_norm = (text_norm if cfg.use_gt_transcript
+                           else retokenize.remove_punctuation(transcription))
+                if len(tr_norm) == 0:  # reference guard
+                    tr_norm = " "
+                text_tokens = retokenize.encode(tr_norm, tok,
+                                                cfg.aligned_unit_type)
+                tokens = [*tok.sot_sequence, tok.no_timestamps, *text_tokens,
+                          tok.eot]
+                max_frames = u.duration // constants.AUDIO_SAMPLES_PER_TOKEN
+                # reference guards (infer_ali.py:78-81); the token cap also
+                # respects the model's own context
+                skip = (max_frames > constants.MAX_FRAMES
+                        or len(tokens) > min(constants.MAX_LENGTH,
+                                             self.dims.n_text_ctx))
+                prepared.append((u, tr_norm, text_norm, text_tokens, tokens,
+                                 int(max_frames), skip))
+
+        live = [p for p in prepared if not p[6]]
+        jump_frames = matrix_np = sel = None
+        if live:
+            b_pad = max(self.cfg.batch_size, len(live))
+            t_max = max(len(p[4]) for p in live)
+            t_bucket = min(self.dims.n_text_ctx,
+                           _pad_to_multiple(t_max, self.token_bucket))
+            tokens_arr, token_len, frame_len, xa_idx = pack_fixed_batch(
+                [(p[0], p[4], p[5]) for p in live], utts, b_pad, t_bucket,
+                tok.eot, self.dims.n_audio_ctx)
+            # cross-K/V reuse needs the live rows in decode order
+            cross_kv = tp.get("cross_kv")
+            if cross_kv is not None and not (
+                    xa.shape[0] == b_pad
+                    and np.array_equal(xa_idx[:len(live)],
+                                       np.arange(len(live)))):
+                cross_kv = None
+            dev = self.device
+            xa_live = (None if cross_kv is not None
+                       else xa[torch.from_numpy(xa_idx).to(dev).long()])
+            token_len_t = torch.from_numpy(token_len).to(dev)
+            frame_len_t = torch.from_numpy(frame_len).to(dev)
+            with self._stage("capture"):
+                attn, _ = timing.get_attentions(
+                    self.model, None, torch.from_numpy(tokens_arr).to(dev),
+                    token_len_t, frame_len_t,
+                    medfilt_width=cfg.medfilt_width, qk_scale=cfg.qk_scale,
+                    return_logits=False, xa=xa_live, cross_kv=cross_kv,
+                    device=dev.type)
+            with self._stage("align"):
+                jump_dev, matrix_dev, scores = timing.force_align_batch(
+                    attn, token_len_t, frame_len_t, self.sot_len, cfg.aggr,
+                    cfg.topk, cfg.w_colnorm, cfg.w_rownorm, cfg.w_coverage)
+                del attn
+                jump_frames = jump_dev.cpu().numpy()
+                if return_matrix:
+                    matrix_np = matrix_dev.cpu().numpy()
+                if scores is not None:
+                    sel = (scores[1].cpu().numpy(), scores[2].cpu().numpy())
+
+        out: List[UttAlignment] = []
+        # device rows follow `live` (prepared minus skips, order kept): index
+        # them positionally, never by fid
+        live_i = -1
+        for u, tr_norm, text_norm, text_tokens, tokens, max_frames, skip in \
+                prepared:
+            if skip:
+                out.append(UttAlignment(
+                    fid=u.fid, words=[], start_times=np.array([]),
+                    end_times=np.array([]), transcription=tr_norm,
+                    text=text_norm, starts=u.starts, ends=u.ends,
+                    skipped=True))
+                continue
+            live_i += 1
+            words, _, wb = timing.words_and_boundaries(
+                text_tokens, tok, cfg.aligned_unit_type)
+            if wb is None:
+                out.append(UttAlignment(
+                    fid=u.fid, words=[], start_times=np.array([]),
+                    end_times=np.array([]), transcription=tr_norm,
+                    text=text_norm, starts=u.starts, ends=u.ends))
+                continue
+            jf = jump_frames[live_i][:len(text_tokens) + 1]
+            starts, ends = timing.jump_frames_to_times(jf, wb)
+            m = None
+            if matrix_np is not None:
+                m = matrix_np[live_i][self.sot_len:len(tokens) - 1,
+                                      :max_frames]
+            out.append(UttAlignment(
+                fid=u.fid, words=words, start_times=starts, end_times=ends,
+                transcription=tr_norm, text=text_norm, starts=u.starts,
+                ends=u.ends, matrix=m,
+                scores=(None if sel is None
+                        else (sel[0][live_i], sel[1][live_i]))))
+        return out
+
+    def run_dataset(self, dataset, progress: bool = True):
+        """Iterate a dataset in batches; yields UttAlignment per utterance,
+        in dataset order (or duration order with ``cfg.sort_by_duration``)."""
+        order = None
+        if self.cfg.sort_by_duration:
+            from .data.dataset import duration_order
+
+            order = duration_order(dataset)
+        it = batch_iter(dataset, self.cfg.batch_size, order=order)
+        if progress:
+            try:
+                from tqdm import tqdm
+            except ImportError:
+                pass
+            else:
+                total = -(-len(dataset) // self.cfg.batch_size)
+                it = tqdm(it, total=total)
+        for batch in it:
+            yield from self.align_batch(batch, return_matrix=self.cfg.plot)

@@ -1,0 +1,22 @@
+"""Errors for the options that the port does not carry yet.
+
+Each names the ``ROADMAP.md`` item that will port it, so an option the port
+lacks is refused loudly and never silently ignored.
+"""
+
+from __future__ import annotations
+
+ROADMAP_ITEMS = {
+    "checkpoints": "ROADMAP.md queue 1, item 2 (checkpoint formats)",
+    "decoding": "ROADMAP.md queue 1, item 4 (decoding modes)",
+    "quantized": "ROADMAP.md queue 1, item 7 (int8 and bucketed modes)",
+    "default_timing": "ROADMAP.md queue 1, item 8 (Whisper's default timing)",
+    "parallel": "ROADMAP.md queue 1, item 9 (multi-GPU)",
+    "mel_kernel": "ROADMAP.md queue 2, row 6 (mel kernel)",
+}
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to the PyTorch package yet: see "
+        f"{ROADMAP_ITEMS[item]}")
