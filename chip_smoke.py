@@ -9,16 +9,23 @@ Phases (any failure exits non-zero and prints no final line):
    library from ``whisper_char_alignment_tpu_torch/csrc`` and print the build
    time.
 2. Kernel vs plain version on the card at the main path's shapes: encoder
-   attention (B=8, H=16, T=1500, hd=64) in f32 and bf16, the QK post-process
-   (B=8, H=16, T=96, F=1500) at widths 3 and 7 with ragged and edge lengths,
-   the DTW wavefront and backtrace (B=16, N<=120, M=1500) on tied integer and
-   random costs (bit-equal). Each kernel is timed with CUDA events (warmed
-   up, mean over 20 launches) beside its plain version, its bound, and, for
-   the encoder attention, ``scaled_dot_product_attention``.
-3. The port's main path: ``AlignmentPipeline.run_dataset`` at Whisper-medium
+   attention (B=8, H=16, T=1500, hd=64) in f32 and bf16, with K as it is and
+   K transposed; the QK post-process (B=8, H=16, T=96, F=1500) at widths 3
+   and 7 with ragged and edge lengths; the DTW wavefront and backtrace
+   (B=16, N<=120, M=1500) on tied integer and random costs (bit-equal); the
+   decode cross-attention (B=8, H=16, hd=64) over int8 and bf16 K/V at
+   F=1500 and at the bucket F=384; the mel frontend (B=8, 30 s) at 80 and
+   128 mels. Each kernel is timed with CUDA events (warmed up, mean over 20
+   launches) beside its plain version, its bound, and, where one PyTorch
+   call computes the same function, that call.
+3. The port's main path, ``AlignmentPipeline.run_dataset`` at Whisper-medium
    width (random weights from torch.Generator seed 0, bf16, toy tokenizer,
-   16 synthetic utterances of 2-7 s), with launch counts that must be exact,
-   alignment sanity checks, and a NumPy DTW recompute of one batch. A tiny
+   16 synthetic utterances of 2-7 s), twice: as configured by default, and
+   with int8 cross K/V, a 128-frame decode bucket, ``WCA_CROSS_ATTN=pallas``
+   and ``WCA_MEL_IMPL=pallas``. Each run's launch counts are reset before it
+   and must be exact after it; alignment sanity checks and a NumPy DTW
+   recompute of one batch follow each. Then one batch with both margin
+   guards: every flagged row must carry the exact decode's tokens. A tiny
    f32 model is also held against the CPU path (plain versions).
 4. A JSON line of per-kernel numbers, then
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -28,6 +35,7 @@ It imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -67,6 +75,43 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, kernel: str = "", iters: int = 20, warmup: int = 3):
+    """Mean device time per call of ``fn``, in ms: the device activity whose
+    name holds ``kernel`` (all of it when empty), summed from a
+    ``torch.profiler`` trace of ``iters`` calls. Unlike CUDA events around
+    back-to-back calls, this leaves out the host time of a wrapper that
+    launches a short kernel. None when the trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for evt in prof.key_averages():
+        if kernel in evt.key:
+            us += (getattr(evt, "self_device_time_total", None)
+                   or getattr(evt, "self_cuda_time_total", 0.0))
+    return us / iters / 1e3 if us > 0 else None
+
+
+def kernel_ms(fn, kernel: str, bound_ms: float) -> float:
+    """The device time per call of the kernels named ``kernel`` (all the
+    call's device work when empty; :func:`device_ms`). Where the trace holds
+    none, or less than the card's bound for the work (so it missed some of
+    the work's kernels), the CUDA-event time of the whole call instead."""
+    ms = device_ms(fn, kernel)
+    if ms is None or ms < bound_ms:
+        log(f"  traced device time {ms} ms for {kernel or 'the call'} is "
+            f"missing or below the bound {bound_ms:.4g} ms: CUDA events")
+        ms = cuda_ms(fn)
+    return ms
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -94,46 +139,53 @@ def kernel_phase():
     q32, k32, v32 = (torch.randn((b, h, t, hd), generator=gen, device=dev)
                      for _ in range(3))
     q32, k32 = q32 * scale, k32 * scale
+    variants = (  # (row, wrapper, plain version, TPU kernel it replaces)
+        ("encoder_attn", encoder_attn_cuda.encoder_self_attention,
+         encoder_attn_cuda.encoder_self_attention_plain,
+         "whisper_char_alignment_tpu/ops/encoder_attn_pallas.py:112"),
+        ("encoder_attn_kt", encoder_attn_cuda.encoder_self_attention_kt,
+         encoder_attn_cuda.encoder_self_attention_kt_plain,
+         "whisper_char_alignment_tpu/ops/encoder_attn_pallas.py:74"))
     for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
         q, k, v = (x.to(dtype).contiguous() for x in (q32, k32, v32))
-        worst = 0.0
-        for n_valid in (t, 1000):
-            out = encoder_attn_cuda.encoder_self_attention(q, k, v, n_valid)
-            ref = encoder_attn_cuda.encoder_self_attention_plain(
-                q, k, v, n_valid)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs()
-            lim = tol + (tol * ref.float().abs() if dtype == torch.bfloat16
-                         else 0.0)
-            check(bool((err <= lim).all()),
-                  f"encoder attention {dtype} n_valid={n_valid}: max err "
-                  f"{err.max().item():.3g}")
-            worst = max(worst, err.max().item())
-            log(f"encoder_attn {str(dtype)[6:]} n_valid={n_valid}: max abs "
-                f"err {err.max().item():.3g} (tol {tol})")
-        ms = cuda_ms(lambda: encoder_attn_cuda.encoder_self_attention(
-            q, k, v, t))
-        plain_ms = cuda_ms(lambda: encoder_attn_cuda.encoder_self_attention_plain(
-            q, k, v, t), iters=3, warmup=1)
-        sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, scale=1.0))
         ops = 4 * b * h * t * t * hd
         nbytes = 4 * b * h * t * hd * q.element_size()
         peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
         bound = max(ops / peak, nbytes / HBM_BYTES_PER_S) * 1e3
-        log(f"encoder_attn {str(dtype)[6:]} (8,16,1500,64): kernel {ms:.4f} ms"
-            f", plain {plain_ms:.4f} ms, sdpa {sdpa_ms:.4f} ms, bound "
-            f"{bound:.4f} ms ({ops / 1e9:.1f} GFLOP)")
-        if dtype == torch.bfloat16:
-            rows["encoder_attn"] = dict(
-                name="encoder_attn", route="cuda",
-                source="whisper_char_alignment_tpu_torch/csrc/encoder_attn.cu",
-                replaces="whisper_char_alignment_tpu/ops/encoder_attn_pallas.py:112",
-                max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound,
-                bound_by="operations" if ops / peak > nbytes / HBM_BYTES_PER_S
-                else "bytes",
-                library_ms=sdpa_ms)
+        sdpa_ms = kernel_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=1.0), "", bound)
+        for name, fn, plain, replaces in variants:
+            worst = 0.0
+            for n_valid in (t, 1000):
+                out = fn(q, k, v, n_valid)
+                ref = plain(q, k, v, n_valid)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs()
+                lim = tol + (tol * ref.float().abs()
+                             if dtype == torch.bfloat16 else 0.0)
+                check(bool((err <= lim).all()),
+                      f"{name} {dtype} n_valid={n_valid}: max err "
+                      f"{err.max().item():.3g}")
+                worst = max(worst, err.max().item())
+                log(f"{name} {str(dtype)[6:]} n_valid={n_valid}: max abs "
+                    f"err {err.max().item():.3g} (tol {tol})")
+            ms = kernel_ms(lambda: fn(q, k, v, t), "encoder_attn_kernel",
+                           bound)
+            call_ms = cuda_ms(lambda: fn(q, k, v, t))
+            plain_ms = cuda_ms(lambda: plain(q, k, v, t), iters=3, warmup=1)
+            log(f"{name} {str(dtype)[6:]} (8,16,1500,64): kernel {ms:.4f} ms"
+                f" (whole call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+                f"sdpa {sdpa_ms:.4f} ms, bound {bound:.4f} ms "
+                f"({ops / 1e9:.1f} GFLOP)")
+            if dtype == torch.bfloat16:
+                rows[name] = dict(
+                    name=name, route="cuda",
+                    source="whisper_char_alignment_tpu_torch/csrc/encoder_attn.cu",
+                    replaces=replaces, max_abs_err=worst, ms=ms,
+                    plain_ms=plain_ms, bound_ms=bound,
+                    bound_by="operations"
+                    if ops / peak > nbytes / HBM_BYTES_PER_S else "bytes",
+                    library_ms=sdpa_ms)
     del q32, k32, v32, q, k, v
 
     # -- QK post-process -----------------------------------------------------
@@ -152,12 +204,13 @@ def kernel_phase():
         worst = max(worst, err)
         check(err <= 1e-6, f"qkpost width {width}: max err {err:.3g}")
         log(f"qkpost width={width}: max abs err {err:.3g} (tol 1e-6)")
-    ms = cuda_ms(lambda: qkpost_cuda.qk_postprocess(qk, frame_len, token_len, 3))
-    plain_ms = cuda_ms(lambda: qkpost_cuda.qk_postprocess_plain(
-        qk, frame_len, token_len, 3), iters=5, warmup=1)
     nbytes = 2 * b * h * t * f * 4 + 2 * b * 4
     ops = b * h * t * f * 8  # 3 compare-exchanges, scale, exp, sum, divide
     bound = max(nbytes / HBM_BYTES_PER_S, ops / PEAK_F32) * 1e3
+    ms = kernel_ms(lambda: qkpost_cuda.qk_postprocess(
+        qk, frame_len, token_len, 3), "qkpost_kernel", bound)
+    plain_ms = cuda_ms(lambda: qkpost_cuda.qk_postprocess_plain(
+        qk, frame_len, token_len, 3), iters=5, warmup=1)
     log(f"qkpost (8,16,96,1500) w=3: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.0f} MB)")
     rows["qkpost"] = dict(
@@ -190,13 +243,6 @@ def kernel_phase():
         check(torch.equal(tr, tr_ref), f"dtw trace ({label}) differs")
         check(torch.equal(jf, jf_ref), f"dtw jump frames ({label}) differ")
         log(f"dtw {label}: trace and jump frames bit-equal")
-    ms_tr = cuda_ms(lambda: dtw_cuda.dtw_trace(rand))
-    plain_tr = cuda_ms(lambda: dtw_cuda.dtw_trace_plain(rand), iters=3,
-                       warmup=1)
-    tr = dtw_cuda.dtw_trace(rand)
-    ms_bt = cuda_ms(lambda: dtw_cuda.dtw_backtrace_jump(tr, n_len, m_len))
-    plain_bt = cuda_ms(lambda: dtw_cuda.dtw_jump_frames_plain(
-        tr, n_len, m_len), iters=3, warmup=1)
     cells = int((n_len.long() * m_len.long()).sum())
     d = n + m - 1
     tr_bytes = cells * 4 + b * d * (n + 1)
@@ -205,6 +251,15 @@ def kernel_phase():
     steps = int((n_len + m_len).sum())
     bt_bytes = steps + b * (n + 1) * 4 + 2 * b * 4
     bt_bound = max(bt_bytes / HBM_BYTES_PER_S, steps * 4 / PEAK_F32) * 1e3
+    ms_tr = kernel_ms(lambda: dtw_cuda.dtw_trace(rand), "dtw_trace_kernel",
+                      tr_bound)
+    plain_tr = cuda_ms(lambda: dtw_cuda.dtw_trace_plain(rand), iters=3,
+                       warmup=1)
+    tr = dtw_cuda.dtw_trace(rand)
+    ms_bt = kernel_ms(lambda: dtw_cuda.dtw_backtrace_jump(tr, n_len, m_len),
+                      "dtw_backtrace_kernel", bt_bound)
+    plain_bt = cuda_ms(lambda: dtw_cuda.dtw_jump_frames_plain(
+        tr, n_len, m_len), iters=3, warmup=1)
     log(f"dtw trace (16,120,1500): kernel {ms_tr:.4f} ms, plain {plain_tr:.4f}"
         f" ms, bound {tr_bound:.5f} ms; {d} dependent diagonal steps")
     log(f"dtw backtrace: kernel {ms_bt:.4f} ms, plain {plain_bt:.4f} ms, "
@@ -224,6 +279,132 @@ def kernel_phase():
         max_abs_err=0.0, ms=ms_bt, plain_ms=plain_bt, bound_ms=bt_bound,
         bound_by="bytes" if bt_bytes / HBM_BYTES_PER_S >= steps * 4 / PEAK_F32
         else "operations", library_ms=None)
+    # row 5 (dtw_trace_batch) is the wavefront of row 3a returning its trace
+    # diagonals: the same kernel, measured above
+    rows["dtw_trace_batch"] = dict(
+        rows["dtw_trace"], name="dtw_trace_batch",
+        replaces="whisper_char_alignment_tpu/ops/dtw_pallas.py:320")
+    del tied, rand, tr
+
+    rows.update(cross_attn_rows(gen))
+    rows.update(mel_rows(gen))
+    return rows
+
+
+def cross_attn_rows(gen):
+    """The decode cross-attention kernel over int8 and bf16 K/V at the full
+    window (F=1500) and at the bucket the second main path takes (F=384)."""
+    import torch
+    import torch.nn.functional as F
+
+    from whisper_char_alignment_tpu_torch.models.whisper import \
+        quantize_cross_kv
+    from whisper_char_alignment_tpu_torch.ops import cross_attn_cuda as ca
+
+    dev = torch.device("cuda")
+    b, h, hd = 8, 16, 64
+    k_scale = hd ** -0.25
+    rows = {}
+    for f in (1500, 384):
+        q = (torch.randn((b, h, 1, hd), generator=gen, device=dev)
+             * k_scale).to(torch.bfloat16)
+        kf, vf = (torch.randn((b, h, hd, f), generator=gen, device=dev)
+                  for _ in range(2))
+        (k8, k_s), (v8, v_s) = quantize_cross_kv(kf), quantize_cross_kv(vf)
+        kb, vb = kf.to(torch.bfloat16), vf.to(torch.bfloat16)
+        int8_args = (q, k8, k_s, v8, v_s)
+        cases = (("cross_attn_int8", ca.cross_attn_step_int8,
+                  ca.cross_attn_step_int8_plain, int8_args,
+                  "whisper_char_alignment_tpu/ops/cross_attn_pallas.py:63"),
+                 ("cross_attn", ca.cross_attn_step, ca.cross_attn_step_plain,
+                  (q, kb, vb),
+                  "whisper_char_alignment_tpu/ops/cross_attn_pallas.py:94"))
+        for name, fn, plain, args, replaces in cases:
+            out = fn(*args, k_scale=k_scale)
+            ref = plain(*args, k_scale=k_scale)
+            torch.cuda.synchronize()
+            err = (out - ref).abs()
+            check(bool((err <= 2e-5 + 2e-5 * ref.abs()).all()),
+                  f"{name} F={f}: max err {err.max().item():.3g}")
+            kv_bytes = sum(x.numel() * x.element_size() for x in args[1:])
+            nbytes = kv_bytes + q.numel() * q.element_size() + out.numel() * 4
+            ops = 4 * b * h * hd * f + 8 * b * h * f  # two products, softmax
+            bound = max(nbytes / HBM_BYTES_PER_S, ops / PEAK_F32) * 1e3
+            ms = kernel_ms(lambda: fn(*args, k_scale=k_scale),
+                           "cross_attn_kernel", bound)
+            call_ms = cuda_ms(lambda: fn(*args, k_scale=k_scale))
+            plain_ms = cuda_ms(lambda: plain(*args, k_scale=k_scale))
+            library_ms = None
+            if name == "cross_attn":  # SDPA on K/V laid out (B, H, F, hd)
+                kt, vt = (x.transpose(-1, -2).contiguous() for x in (kb, vb))
+                library_ms = kernel_ms(lambda: F.scaled_dot_product_attention(
+                    q, kt, vt, scale=k_scale), "", bound)
+            log(f"{name} (8,16,64,{f}): max abs err {err.max().item():.3g} "
+                f"(tol 2e-5 + 2e-5 rel); kernel {ms:.4f} ms (whole call "
+                f"{call_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+                f"{bound:.5f} ms "
+                f"({nbytes / 1e6:.1f} MB)"
+                + (f", sdpa {library_ms:.4f} ms" if library_ms else ""))
+            # the int8 row at the bucket the main path takes, the bf16 row
+            # (off every path) at the full window
+            if (name == "cross_attn_int8") == (f == 384):
+                rows[name] = dict(
+                    name=name, route="cuda",
+                    source="whisper_char_alignment_tpu_torch/csrc/cross_attn.cu",
+                    replaces=replaces, max_abs_err=err.max().item(), ms=ms,
+                    plain_ms=plain_ms, bound_ms=bound,
+                    bound_by="bytes" if nbytes / HBM_BYTES_PER_S
+                    >= ops / PEAK_F32 else "operations",
+                    library_ms=library_ms)
+    return rows
+
+
+def mel_rows(gen):
+    """The mel kernel on 8 windows of 30 s whose first 2-7 s hold a tone in
+    noise and the rest silence, as the runner pads utterances."""
+    import numpy as np
+    import torch
+
+    from whisper_char_alignment_tpu_torch.ops import mel_cuda
+
+    dev = torch.device("cuda")
+    b, n = 8, 480000
+    live = torch.randint(32000, 112001, (b,), generator=gen, device=dev)
+    t = torch.arange(n, device=dev) / 16000.0
+    audio = (0.1 * torch.randn((b, n), generator=gen, device=dev)
+             + 0.4 * torch.sin(2 * np.pi * 440.0 * t))
+    audio = torch.where(t[None] * 16000 < live[:, None], audio, 0.0)
+    n_frames = n // 160
+    rows = {}
+    for n_mels in (80, 128):
+        out = mel_cuda.log_mel(audio, n_mels)
+        ref = mel_cuda.log_mel_plain(audio, n_mels)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        check(err <= 1e-4, f"mel n_mels={n_mels}: max err {err:.3g}")
+        fb_nonzeros = int(np.count_nonzero(mel_cuda._tables(n_mels)[3]))
+        # per frame: window, 400 x 201 complex products, power, the
+        # filterbank's nonzeros, the log; then clip and scale per value
+        ops = b * n_frames * (400 + 400 * 201 * 4 + 201 * 3
+                              + 2 * fb_nonzeros + 4 * n_mels)
+        nbytes = 4 * b * n + 4 * b * n_mels * n_frames
+        bound = max(ops / PEAK_F32, nbytes / HBM_BYTES_PER_S) * 1e3
+        ms = kernel_ms(lambda: mel_cuda.log_mel(audio, n_mels), "mel_kernel",
+                       bound)
+        call_ms = cuda_ms(lambda: mel_cuda.log_mel(audio, n_mels))
+        plain_ms = cuda_ms(lambda: mel_cuda.log_mel_plain(audio, n_mels))
+        log(f"mel (8, 480000) n_mels={n_mels}: max abs err {err:.3g} "
+            f"(tol 1e-4); kernel {ms:.4f} ms (whole call with the clip "
+            f"{call_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+            f"bound {bound:.4f} ms ({ops / 1e9:.2f} GFLOP)")
+        if n_mels == 80:  # Whisper-medium's
+            rows["mel"] = dict(
+                name="mel", route="cuda",
+                source="whisper_char_alignment_tpu_torch/csrc/mel.cu",
+                replaces="whisper_char_alignment_tpu/ops/mel_pallas.py:80",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by="operations" if ops / PEAK_F32
+                >= nbytes / HBM_BYTES_PER_S else "bytes", library_ms=None)
     return rows
 
 
@@ -293,13 +474,167 @@ def tiny_vs_cpu() -> str:
     return f"encoder max err {e_err:.3g} (tol 2e-4), attention {a_err:.3g} (tol 1e-5)"
 
 
-def main_path_phase(card: str):
+@contextlib.contextmanager
+def spying(seen: dict):
+    """Count, while the block runs, the decode steps by the kind of their
+    cross K/V (int8 or float) and the frames they span, and the capture
+    passes that reuse the decode loop's K/V: the two module functions the
+    runner reaches are wrapped and restored after."""
+    from whisper_char_alignment_tpu_torch.align import timing
+    from whisper_char_alignment_tpu_torch.models import whisper as wm
+
+    step, attentions = wm.decode_step, timing.get_attentions
+
+    def counted_step(model, tokens, pos, cache, cross_kv, cross_mode=None):
+        ck = cross_kv[0]
+        int8 = isinstance(ck, tuple)
+        seen["int8_steps" if int8 else "float_steps"] += 1
+        seen["frames"].add((ck[0] if int8 else ck).shape[-1])
+        return step(model, tokens, pos, cache, cross_kv, cross_mode=cross_mode)
+
+    def counted_attentions(*args, **kwargs):
+        seen["captures"] += 1
+        seen["reused"] += kwargs.get("cross_kv") is not None
+        return attentions(*args, **kwargs)
+
+    wm.decode_step, timing.get_attentions = counted_step, counted_attentions
+    try:
+        yield
+    finally:
+        wm.decode_step, timing.get_attentions = step, attentions
+
+
+def new_seen() -> dict:
+    return dict(int8_steps=0, float_steps=0, frames=set(), captures=0,
+                reused=0)
+
+
+def check_alignments(results, dataset, n: int) -> None:
     import numpy as np
+
+    check(len(results) == n, f"{len(results)} results")
+    by_fid = {dataset.entries[i][0]: dataset[i] for i in range(len(dataset))}
+    for r in results:
+        check(not r.skipped and len(r.words) >= 2, f"{r.fid} not aligned")
+        dur = by_fid[r.fid].duration / 16000
+        s, e = np.asarray(r.start_times), np.asarray(r.end_times)
+        check(bool(np.isfinite(s).all() and np.isfinite(e).all()),
+              f"{r.fid}: non-finite times")
+        check(bool((s <= e).all()), f"{r.fid}: a start after its end")
+        check(bool((np.diff(s) >= 0).all() and (np.diff(e) >= 0).all()),
+              f"{r.fid}: times decrease")
+        check(bool(s.min() >= 0 and e.max() <= dur + 1e-9),
+              f"{r.fid}: times outside [0, {dur:.2f}]")
+
+
+def drive(label: str, pipe, dataset, expected, card: str):
+    """One main-path run: a warmup batch, then ``run_dataset`` with the
+    launch counts set to 0 just before and read just after, which must equal
+    ``expected(seen)``; then the alignment checks and the NumPy DTW oracle
+    on the first batch. Returns (counts, seen)."""
+    import torch
+
+    from whisper_char_alignment_tpu_torch.data.dataset import batch_iter
+    from whisper_char_alignment_tpu_torch.ops import _lib
+
+    t0 = time.perf_counter()
+    pipe.align_batch([dataset[i] for i in range(BATCH)])
+    log(f"[{label}] warmup batch: {time.perf_counter() - t0:.2f} s")
+
+    seen = new_seen()
+    pipe.stage_seconds.clear()
+    _lib.reset_launches()
+    torch.cuda.synchronize()
+    with spying(seen):
+        t0 = time.perf_counter()
+        results = list(pipe.run_dataset(dataset, progress=False))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = _lib.launch_counts()
+    expect = expected(seen)
+    log(f"[{label}] launch counts: {counts} (expected {expect}); decode "
+        f"steps int8 {seen['int8_steps']} float {seen['float_steps']} over "
+        f"{sorted(seen['frames'])} frames; capture passes {seen['captures']}"
+        f", reusing the decode K/V {seen['reused']}")
+    check(counts == expect, f"[{label}] launch counts differ from the path's")
+    check_alignments(results, dataset, len(dataset))
+    stages = {k: round(v, 4) for k, v in pipe.stage_seconds.items()}
+    log(f"[{label}] main path on {card}: {len(dataset)} utterances aligned in"
+        f" {wall:.3f} s -> {len(dataset) / wall:.3f} utts/s; stage seconds "
+        f"{json.dumps(stages)}")
+    first = next(iter(batch_iter(dataset, BATCH, prefetch=0)))
+    held = oracle_recompute(pipe, first)
+    check(held > 0, f"[{label}] no utterance held against the DTW oracle")
+    log(f"[{label}] NumPy DTW oracle: {held} utterances' boundaries equal")
+    return counts, seen
+
+
+def guarded_phase(model, tok, dataset, card: str) -> None:
+    """One batch with both margin guards (int8 K/V and a 128-frame bucket):
+    launch counts exact, margins tracked, and every row the guard flags
+    carries the tokens of the exact (full-window, unquantized) decode."""
+    import numpy as np
+
+    from whisper_char_alignment_tpu_torch import constants
+    from whisper_char_alignment_tpu_torch.config import AlignConfig
+    from whisper_char_alignment_tpu_torch.models import decoding
+    from whisper_char_alignment_tpu_torch.ops import _lib
+    from whisper_char_alignment_tpu_torch.runner import AlignmentPipeline
+
+    cfg = AlignConfig.recommended(
+        model="medium", batch_size=BATCH, use_gt_transcript=True,
+        decode_kv_int8_guarded=True, decode_frame_bucket=128,
+        decode_frame_bucket_guarded=True)
+    pipe = AlignmentPipeline(model, tok, cfg, compute_dtype=model.dtype)
+    pipe.options = decoding.DecodingOptions(language="en",
+                                            sample_len=DECODE_LEN)
+    batch = [dataset[i] for i in range(BATCH)]
+    seen = new_seen()
+    _lib.reset_launches()
+    with spying(seen):
+        results = pipe.align_batch(batch)
+    counts = _lib.launch_counts()
+    expect = dict.fromkeys(counts, 0)
+    layers = model.dims.n_text_layer
+    expect.update(encoder_attn=model.dims.n_audio_layer, qkpost=layers,
+                  dtw_trace=1, dtw_backtrace=1, mel=1,
+                  cross_attn_int8=layers * seen["int8_steps"])
+    log(f"[guarded] launch counts: {counts} (expected {expect}); decode "
+        f"steps int8 {seen['int8_steps']}, exact re-decode "
+        f"{seen['float_steps']}")
+    check(counts == expect, "[guarded] launch counts differ from the path's")
+    check(seen["int8_steps"] > 0, "[guarded] no int8 decode step ran")
+    check_alignments(results, dataset, BATCH)
+    guard = pipe.active_guard_margin()
+    check(len(pipe.min_margins) == BATCH
+          and bool(np.isfinite(pipe.min_margins).all()),
+          f"[guarded] margins not tracked: {pipe.min_margins}")
+
+    _, mel, xa = pipe.transcribe_batch(batch)
+    kv_frames = min(model.dims.n_audio_ctx, -(-max(
+        max(u.duration // constants.AUDIO_SAMPLES_PER_TOKEN, 1)
+        for u in batch) // 128) * 128)
+    exact = decoding.decode(pipe.model, tok, mel, pipe.options, xa=xa)
+    guarded = decoding.decode(
+        pipe.model, tok, mel, pipe.options, xa=xa, kv_frames=kv_frames,
+        kv_int8_guard=decoding.default_guard_margin(),
+        kv_frames_guard=decoding.default_bucket_guard_margin())
+    flagged = [i for i, r in enumerate(guarded) if r.min_margin < guard]
+    for i in flagged:
+        check(guarded[i].tokens == exact[i].tokens,
+              f"[guarded] flagged row {i} differs from the exact decode")
+    log(f"[guarded] on {card}: guard {guard}, kv_frames {kv_frames}, flag "
+        f"rate {pipe.flag_rate()}, min margins "
+        f"{[round(m, 4) for m in pipe.min_margins]}; {len(flagged)} of "
+        f"{BATCH} rows flagged, each with the exact decode's tokens")
+
+
+def main_path_phase(card: str):
     import torch
 
     from whisper_char_alignment_tpu_torch.config import (MODEL_DIMS,
                                                          AlignConfig)
-    from whisper_char_alignment_tpu_torch.data.dataset import TIMIT, batch_iter
+    from whisper_char_alignment_tpu_torch.data.dataset import TIMIT
     from whisper_char_alignment_tpu_torch.data.synthetic import make_timit_corpus
     from whisper_char_alignment_tpu_torch.models import decoding
     from whisper_char_alignment_tpu_torch.models import whisper as wm
@@ -319,6 +654,26 @@ def main_path_phase(card: str):
     torch.cuda.synchronize()
     log(f"medium model ({sum(p.numel() for p in model.parameters()) / 1e6:.0f}M"
         f" params, bf16) built in {time.perf_counter() - t0:.1f} s")
+    n_batches = -(-N_UTTS // BATCH)
+
+    def expected(**extra):
+        def fn(seen):
+            out = dict.fromkeys(_lib.LAUNCHES, 0)
+            out.update(encoder_attn=dims.n_audio_layer * n_batches,
+                       qkpost=dims.n_text_layer * n_batches,
+                       dtw_trace=n_batches, dtw_backtrace=n_batches)
+            out.update({k: v(seen) for k, v in extra.items()})
+            return out
+        return fn
+
+    def pipeline(**over):
+        cfg = AlignConfig.recommended(model="medium", batch_size=BATCH,
+                                      use_gt_transcript=True, **over)
+        pipe = AlignmentPipeline(model, tok, cfg,
+                                 compute_dtype=torch.bfloat16)
+        pipe.options = decoding.DecodingOptions(language="en",
+                                                sample_len=DECODE_LEN)
+        return pipe
 
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="smoke_corpus_",
@@ -326,54 +681,36 @@ def main_path_phase(card: str):
         scp = make_timit_corpus(d, n_utts=N_UTTS, seconds=(2.0, 7.0),
                                 words_per_utt=(6, 10), seed=0)
         dataset = TIMIT(scp)
-        cfg = AlignConfig.recommended(model="medium", batch_size=BATCH,
-                                      use_gt_transcript=True)
-        pipe = AlignmentPipeline(model, tok, cfg, compute_dtype=torch.bfloat16)
-        pipe.options = decoding.DecodingOptions(language="en",
-                                                sample_len=DECODE_LEN)
-        warm = [dataset[i] for i in range(BATCH)]
-        t0 = time.perf_counter()
-        pipe.align_batch(warm)
-        log(f"warmup batch: {time.perf_counter() - t0:.2f} s")
+        counts, seen = drive("default", pipeline(), dataset, expected(), card)
+        check(seen["int8_steps"] == 0 and seen["reused"] == n_batches,
+              "[default] the capture pass did not reuse the decode K/V")
 
-        pipe.stage_seconds.clear()
-        _lib.reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        results = list(pipe.run_dataset(dataset, progress=False))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = _lib.launch_counts()
-
-        n_batches = -(-N_UTTS // BATCH)
-        expect = {"encoder_attn": dims.n_audio_layer * n_batches,
-                  "qkpost": dims.n_text_layer * n_batches,
-                  "dtw_trace": n_batches, "dtw_backtrace": n_batches}
-        log(f"launch counts on the main path: {counts} (expected {expect})")
-        check(counts == expect, "launch counts differ from the main path's")
-        check(len(results) == N_UTTS, f"{len(results)} results")
-        by_fid = {dataset.entries[i][0]: dataset[i] for i in range(N_UTTS)}
-        for r in results:
-            check(not r.skipped and len(r.words) >= 2, f"{r.fid} not aligned")
-            dur = by_fid[r.fid].duration / 16000
-            s, e = np.asarray(r.start_times), np.asarray(r.end_times)
-            check(bool(np.isfinite(s).all() and np.isfinite(e).all()),
-                  f"{r.fid}: non-finite times")
-            check(bool((s <= e).all()), f"{r.fid}: a start after its end")
-            check(bool((np.diff(s) >= 0).all() and (np.diff(e) >= 0).all()),
-                  f"{r.fid}: times decrease")
-            check(bool(s.min() >= 0 and e.max() <= dur + 1e-9),
-                  f"{r.fid}: times outside [0, {dur:.2f}]")
-        stages = {k: round(v, 4) for k, v in pipe.stage_seconds.items()}
-        log(f"main path on {card}: {N_UTTS} utterances aligned in {wall:.3f} s"
-            f" -> {N_UTTS / wall:.3f} utts/s; stage seconds "
-            f"{json.dumps(stages)}")
-
-        first = next(iter(batch_iter(dataset, BATCH, prefetch=0)))
-        held = oracle_recompute(pipe, first)
-        check(held > 0, "no utterance held against the NumPy DTW oracle")
-        log(f"NumPy DTW oracle: {held} utterances' boundaries equal")
-    return counts
+        env = {"WCA_CROSS_ATTN": "pallas", "WCA_MEL_IMPL": "pallas"}
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            quant = expected(
+                mel=lambda seen: n_batches,
+                cross_attn_int8=lambda seen: dims.n_text_layer
+                * seen["int8_steps"])
+            counts2, seen2 = drive(
+                "int8+bucket", pipeline(decode_kv_int8=True,
+                                        decode_frame_bucket=128),
+                dataset, quant, card)
+            check(seen2["int8_steps"] > 0 and seen2["float_steps"] == 0
+                  and all(f % 128 == 0 and f < dims.n_audio_ctx
+                          for f in seen2["frames"]),
+                  "[int8+bucket] the decode did not take bucketed int8 K/V")
+            check(seen2["reused"] == 0 and seen2["captures"] == n_batches,
+                  "[int8+bucket] the capture pass reused int8/bucketed K/V")
+            guarded_phase(model, tok, dataset, card)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    return counts, counts2
 
 
 def main() -> int:
@@ -414,9 +751,14 @@ def main() -> int:
             log(f"  {line.strip()}")
 
     rows = kernel_phase()
-    counts = main_path_phase(card)
+    counts, counts2 = main_path_phase(card)
+    # each row's launches come from the run whose path holds its kernel: the
+    # default run, or the int8 + bucket run for the mel and cross-attention
+    # kernels; row 5 is row 3a's kernel
     for name, row in rows.items():
-        row["launches"] = counts[name]
+        run = counts2 if name.startswith(("mel", "cross_attn")) else counts
+        row["launches"] = run["dtw_trace" if name == "dtw_trace_batch"
+                              else name]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     print(json.dumps({"kernels": [{k: r[k] for k in keys}

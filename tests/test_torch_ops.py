@@ -186,6 +186,20 @@ def test_dtw_row0_boundary_cell_and_short_items():
     assert (got[1] == -1).all()
 
 
+@pytest.mark.parametrize("seed", range(4))
+def test_dtw_trace_bit_equal_to_jax_trace_batch(seed):
+    """Row 5 of the kernel table: ``dtw_trace_batch`` returns the Pallas
+    wavefront's trace as (B, N + M - 1, N + 1) int8 diagonals, which is what
+    ``dtw_cuda.dtw_trace`` returns."""
+    x, _, _ = _dtw_case(seed)
+    want = np.asarray(dtw_pallas.dtw_trace_batch(jnp.asarray(x),
+                                                 use_pallas=True,
+                                                 interpret=True))
+    got = dtw_cuda.dtw_trace(_t(x)).numpy()
+    assert got.dtype == want.dtype == np.int8
+    np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_dtw_single_matrix_matches_numpy_oracle(seed):
     rng = np.random.default_rng(seed)

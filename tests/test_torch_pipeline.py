@@ -118,17 +118,13 @@ def test_test_model_is_seeded_and_refuses_a_missing_gpu(monkeypatch):
 
 
 @pytest.mark.parametrize("override", [
-    dict(decode_kv_int8=True), dict(decode_kv_int8_guarded=True),
-    dict(decode_frame_bucket=128), dict(encoder_int8=True),
-    dict(default_whisper_timing=True), dict(data_parallel=2),
-    dict(tensor_parallel=2), "mel_pallas", "mesh"])
-def test_unported_pipeline_options_raise(setup, override, monkeypatch):
+    dict(encoder_int8=True), dict(default_whisper_timing=True),
+    dict(data_parallel=2), dict(tensor_parallel=2), "mesh"])
+def test_unported_pipeline_options_raise(setup, override):
     _, model, _ = setup
     kw = {}
     cfg = AlignConfig.recommended(model="test")
-    if override == "mel_pallas":
-        monkeypatch.setenv("WCA_MEL_IMPL", "pallas")
-    elif override == "mesh":
+    if override == "mesh":
         kw["mesh"] = object()
     else:
         cfg = dataclasses.replace(cfg, **override)
@@ -165,8 +161,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     mods = ["api", "runner", "align.timing", "audio.mel", "audio.resample",
             "audio.wav", "config", "constants", "data.dataset",
             "data.synthetic", "models.convert", "models.decoding",
-            "models.whisper", "ops.dtw", "ops.dtw_cuda", "ops.encoder_attn_cuda",
-            "ops.medfilt", "ops.qkpost_cuda", "ops._lib", "text.bpe",
+            "models.whisper", "ops.cross_attn_cuda", "ops.dtw", "ops.dtw_cuda",
+            "ops.encoder_attn_cuda", "ops.medfilt", "ops.mel_cuda",
+            "ops.qkpost_cuda", "ops._lib", "text.bpe",
             "text.numwords", "text.retokenize", "text.tokenizer",
             "utils.device", "utils.unported"]
     code = (

@@ -7,12 +7,14 @@
 The DFT is two float32 matmuls against cos/sin bases, as the JAX package's
 default (``use_fft=False``) path computes it. :func:`wire_to_mel` adds the
 runner's int16 wire decode and on-device zero padding
-(``whisper_char_alignment_tpu/runner.py::_mel_step_jit``).
+(``whisper_char_alignment_tpu/runner.py::_mel_step_jit``), and with
+``WCA_MEL_IMPL=pallas`` runs the mel kernel of ``ops/mel_cuda.py`` instead.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 from typing import Optional
 
 import numpy as np
@@ -94,21 +96,12 @@ def _dft_bases(n_fft: int):
     return (np.cos(ang).astype(np.float32).T, np.sin(ang).astype(np.float32).T)
 
 
-def log_mel_spectrogram(audio: torch.Tensor,
-                        n_mels: int = constants.N_MELS) -> torch.Tensor:
-    """Whisper log-mel spectrogram of 16 kHz ``audio`` (..., n_samples)
-    float32, typically already padded to 30 s. Returns (..., n_mels,
-    n_samples // HOP): 3000 frames for 30 s input. Runs where ``audio``
-    lies."""
+def log10_mel(audio: torch.Tensor, n_mels: int) -> torch.Tensor:
+    """The spectrogram up to its log: (B, n_samples) float32 -> (B, n_mels,
+    n_samples // HOP) ``log10(max(mel, 1e-10))``, before the per-item clip.
+    Runs where ``audio`` lies."""
     n_fft, hop = constants.N_FFT, constants.HOP_LENGTH
-    audio = torch.as_tensor(audio, dtype=torch.float32)
-    squeeze = audio.ndim == 1
-    if squeeze:
-        audio = audio[None]
-    lead = audio.shape[:-1]
-    audio = audio.reshape(-1, audio.shape[-1])
     dev = audio.device
-
     window = torch.from_numpy(
         np.hanning(n_fft + 1)[:-1].astype(np.float32)).to(dev)  # periodic
     padded = F.pad(audio[:, None, :], (n_fft // 2, n_fft // 2),
@@ -123,13 +116,44 @@ def log_mel_spectrogram(audio: torch.Tensor,
 
     filters = torch.from_numpy(mel_filterbank(n_mels)).to(dev)
     mel_spec = torch.einsum("mf,btf->bmt", filters, magnitudes)
+    return torch.log10(mel_spec.clamp(min=1e-10))
 
-    log_spec = torch.log10(mel_spec.clamp(min=1e-10))
+
+def clip_and_scale(log_spec: torch.Tensor) -> torch.Tensor:
+    """Whisper's per-item dynamic-range clip at (max - 8), then (x + 4) / 4,
+    over (B, n_mels, frames)."""
     log_spec = torch.maximum(
         log_spec, log_spec.amax(dim=(-2, -1), keepdim=True) - 8.0)
-    log_spec = (log_spec + 4.0) / 4.0
+    return (log_spec + 4.0) / 4.0
+
+
+def log_mel_spectrogram(audio: torch.Tensor,
+                        n_mels: int = constants.N_MELS) -> torch.Tensor:
+    """Whisper log-mel spectrogram of 16 kHz ``audio`` (..., n_samples)
+    float32, typically already padded to 30 s. Returns (..., n_mels,
+    n_samples // HOP): 3000 frames for 30 s input. Runs where ``audio``
+    lies."""
+    audio = torch.as_tensor(audio, dtype=torch.float32)
+    squeeze = audio.ndim == 1
+    if squeeze:
+        audio = audio[None]
+    lead = audio.shape[:-1]
+    audio = audio.reshape(-1, audio.shape[-1])
+    log_spec = clip_and_scale(log10_mel(audio, n_mels))
     out = log_spec.reshape(lead + log_spec.shape[-2:])
     return out[0] if squeeze else out
+
+
+def mel_impl() -> str:
+    """The frontend ``wire_to_mel`` runs (env ``WCA_MEL_IMPL``): ``xla``
+    (default; the matmul DFT above, the JAX package's name for it) or
+    ``pallas`` (the mel kernel of ``ops/mel_cuda.py``, the JAX package's
+    name for its kernel). Any other value raises."""
+    mode = os.environ.get("WCA_MEL_IMPL", "xla")
+    if mode not in ("xla", "pallas"):
+        raise ValueError(f"WCA_MEL_IMPL={mode!r} is not a known frontend; "
+                         "use xla or pallas")
+    return mode
 
 
 def wire_to_mel(wire: torch.Tensor, n_mels: int,
@@ -137,10 +161,14 @@ def wire_to_mel(wire: torch.Tensor, n_mels: int,
                 compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The runner's mel step: an int16 wire batch (exact for 16-bit PCM) is
     scaled by 1/32768; a batch shorter than ``total_samples`` is zero-padded
-    on its device (bit-exact with padding on the host); then the log-mel,
-    cast to the compute dtype."""
+    on its device (bit-exact with padding on the host); then the log-mel of
+    :func:`mel_impl`'s frontend, cast to the compute dtype."""
     if wire.dtype == torch.int16:
         wire = wire.float() * (1.0 / 32768.0)
     if total_samples is not None and wire.shape[-1] < total_samples:
         wire = F.pad(wire, (0, total_samples - wire.shape[-1]))
+    if mel_impl() == "pallas":
+        from ..ops.mel_cuda import log_mel
+
+        return log_mel(wire, n_mels=n_mels).to(compute_dtype)
     return log_mel_spectrogram(wire, n_mels=n_mels).to(compute_dtype)

@@ -17,6 +17,32 @@ __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_float(int8_t v) {
+  return static_cast<float>(v);
+}
+
+// Sum (or max) of v over the block; every thread gets the result. `red`
+// holds one float per warp; blockDim.x is a multiple of 32.
+template <bool kMax>
+__device__ __forceinline__ float block_reduce(float v, float* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float o = __shfl_xor_sync(kFullMask, v, off);
+    v = kMax ? fmaxf(v, o) : v + o;
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  __syncthreads();  // `red` may still be read from a previous reduction
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  v = lane < n_warps ? red[lane] : (kMax ? -CUDART_INF_F : 0.f);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float o = __shfl_xor_sync(kFullMask, v, off);
+    v = kMax ? fmaxf(v, o) : v + o;
+  }
+  return v;
+}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float v);

@@ -21,6 +21,12 @@
 //   to the compute dtype before P v, as the TPU kernel casts its
 //   probabilities. Scores and P v are scalar f32 FMAs: simple and exact, far
 //   from the tensor-core bound; wgmma/TMA tiles are later work.
+//
+// The kKT instantiation replaces encoder_self_attention_kt (its _kernel_kt):
+//   the same function with K handed over transposed, as (bh, hd, t). Only
+//   the K tile load differs: lanes walk consecutive keys of one head-dim
+//   row, so the global reads coalesce, and the tile lands in the same
+//   padded [key][d] layout (bank (key + d) mod 32: conflict-free stores).
 #include "common.cuh"
 
 namespace {
@@ -35,7 +41,7 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (size_t)(kBQ * (HD + 1) + 2 * kBK * (HD + 1) + kBQ * kLDP);
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool kKT>
 __global__ void __launch_bounds__(kThreads)
     encoder_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, T* __restrict__ o, int t,
@@ -76,8 +82,16 @@ __global__ void __launch_bounds__(kThreads)
     for (int idx = tid; idx < kBK * HD; idx += kThreads) {
       const int r = idx / HD, c = idx % HD, key = k0 + r;
       const bool in = key < kv_len;
-      ks[r * LD + c] = in ? wca::to_float(kb[(size_t)key * HD + c]) : 0.f;
+      if (!kKT)
+        ks[r * LD + c] = in ? wca::to_float(kb[(size_t)key * HD + c]) : 0.f;
       vs[r * LD + c] = in ? wca::to_float(vb[(size_t)key * HD + c]) : 0.f;
+    }
+    if (kKT) {  // kb is (HD, t): row c holds every key's component c
+      for (int idx = tid; idx < kBK * HD; idx += kThreads) {
+        const int c = idx / kBK, r = idx % kBK, key = k0 + r;
+        ks[r * LD + c] =
+            key < kv_len ? wca::to_float(kb[(size_t)c * t + key]) : 0.f;
+      }
     }
     __syncthreads();
 
@@ -159,31 +173,42 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool kKT>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh,
                    int t, int n_valid, cudaStream_t stream) {
   const size_t smem = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
-      encoder_attn_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      encoder_attn_kernel<T, HD, kKT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(bh, (t + kBQ - 1) / kBQ);
-  encoder_attn_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
+  encoder_attn_kernel<T, HD, kKT><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), t, n_valid);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kKT>
 cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
                         int bh, int t, int n_valid, int hd, cudaStream_t s) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, o, bh, t, n_valid, s);
-    case 32: return launch<T, 32>(q, k, v, o, bh, t, n_valid, s);
-    case 64: return launch<T, 64>(q, k, v, o, bh, t, n_valid, s);
-    case 128: return launch<T, 128>(q, k, v, o, bh, t, n_valid, s);
+    case 16: return launch<T, 16, kKT>(q, k, v, o, bh, t, n_valid, s);
+    case 32: return launch<T, 32, kKT>(q, k, v, o, bh, t, n_valid, s);
+    case 64: return launch<T, 64, kKT>(q, k, v, o, bh, t, n_valid, s);
+    case 128: return launch<T, 128, kKT>(q, k, v, o, bh, t, n_valid, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <bool kKT>
+int dispatch(const void* q, const void* k, const void* v, void* o, int bh,
+             int t, int n_valid, int hd, int is_bf16, void* stream) {
+  if (bh <= 0 || t <= 0 || n_valid <= 0 || n_valid > t)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return dispatch_hd<__nv_bfloat16, kKT>(q, k, v, o, bh, t, n_valid, hd, s);
+  return dispatch_hd<float, kKT>(q, k, v, o, bh, t, n_valid, hd, s);
 }
 
 }  // namespace
@@ -192,10 +217,13 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
 WCA_EXPORT int wca_encoder_attn(const void* q, const void* k, const void* v,
                                 void* o, int bh, int t, int n_valid, int hd,
                                 int is_bf16, void* stream) {
-  if (bh <= 0 || t <= 0 || n_valid <= 0 || n_valid > t)
-    return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return dispatch_hd<__nv_bfloat16>(q, k, v, o, bh, t, n_valid, hd, s);
-  return dispatch_hd<float>(q, k, v, o, bh, t, n_valid, hd, s);
+  return dispatch<false>(q, k, v, o, bh, t, n_valid, hd, is_bf16, stream);
+}
+
+// As wca_encoder_attn with K transposed: kt (bh, hd, t) contiguous.
+WCA_EXPORT int wca_encoder_attn_kt(const void* q, const void* kt,
+                                   const void* v, void* o, int bh, int t,
+                                   int n_valid, int hd, int is_bf16,
+                                   void* stream) {
+  return dispatch<true>(q, kt, v, o, bh, t, n_valid, hd, is_bf16, stream);
 }

@@ -16,11 +16,17 @@ The prompt is consumed in one teacher-forced prefill pass, then one
 each step) or the sample budget runs out. Beam search, temperature sampling,
 language detection and prompt/prefix conditioning are refused with
 ``NotImplementedError`` (a later slice ports them).
+
+The opt-in decode modes of the JAX package are here too: cross K/V over the
+first ``kv_frames`` encoder frames only, int8 cross K/V, and their margin
+guards, which re-decode exactly every utterance whose smallest top1-top2
+logit gap falls below the guard.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import zlib
 from typing import List, Optional, Tuple
 
@@ -63,8 +69,29 @@ class DecodingResult:
     # sequence positions the loop reached for the whole batch (prompt
     # positions count whether prefilled or stepped)
     n_steps: int = 0
-    # kept for the JAX package's result shape; only its guarded modes fill it
+    # smallest sampled-step top1-top2 filtered-logit gap of the utterance,
+    # filled only when a guard tracked margins; NaN otherwise
     min_margin: float = float("nan")
+
+
+# Default min-margin guards (logit units) of the guarded int8 and
+# frame-bucket modes: an utterance re-decodes exactly unless every sampled
+# step's top1-top2 filtered-logit gap exceeds the active guards' sum. A
+# deployment that has measured its own bounds sets the environment values.
+DEFAULT_KV_INT8_GUARD_MARGIN = 2.0
+DEFAULT_BUCKET_GUARD_MARGIN = 2.0
+
+
+def default_guard_margin() -> float:
+    """The int8 guard: ``WCA_KV_INT8_GUARD_MARGIN``, default 2.0."""
+    return float(os.environ.get("WCA_KV_INT8_GUARD_MARGIN",
+                                DEFAULT_KV_INT8_GUARD_MARGIN))
+
+
+def default_bucket_guard_margin() -> float:
+    """The frame-bucket guard: ``WCA_BUCKET_GUARD_MARGIN``, default 2.0."""
+    return float(os.environ.get("WCA_BUCKET_GUARD_MARGIN",
+                                DEFAULT_BUCKET_GUARD_MARGIN))
 
 
 def resolved_special_tokens(tokenizer, language: Optional[str],
@@ -228,19 +255,31 @@ def _decode_loop(model, xa: torch.Tensor, prompt: np.ndarray,
                  sample_begin: int, max_steps: int, ts_begin: int, eot: int,
                  no_timestamps: int, no_speech: Optional[int],
                  max_initial_ts_index: Optional[int], use_timestamps: bool,
-                 sot_index: int = 0):
+                 sot_index: int = 0, kv_frames: Optional[int] = None,
+                 kv_int8: bool = False, cross_mode: str = "xla",
+                 track_margin: bool = False):
     """Greedy decode from encoder states xa (B, n_audio_ctx, d).
 
     Returns (tokens (B, total), sum_logprobs (B,), no_speech_probs (B,),
-    n_steps, cross_kv): n_steps counts the sequence positions reached
-    (prompt positions included); cross_kv are the (L, B, H, hd, F) K/V the
-    loop used, reusable by the teacher-forced capture pass."""
+    n_steps, cross_kv, min_margin (B,)): n_steps counts the sequence
+    positions reached (prompt positions included); cross_kv are the K/V the
+    loop used, (L, B, H, hd, F) each, sliced to ``kv_frames`` frames and
+    int8 ``(codes, scales)`` under ``kv_int8``; reusable by the
+    teacher-forced capture pass only without either. With
+    ``track_margin`` each active sampled step's top1-top2 filtered-logit
+    gap is tracked and min_margin is its smallest value per row (+inf
+    otherwise)."""
     dev = xa.device
     b = xa.shape[0]
     dims = model.dims
     total = sample_begin + max_steps
     vocab_ids = torch.arange(dims.n_vocab, device=dev)
-    cross_kv = wmodel.precompute_cross_kv(model, xa)
+    xa_kv = xa
+    if kv_frames is not None and kv_frames < xa.shape[1]:
+        # attend only to the first kv_frames encoder positions: not equal to
+        # the reference, which attends over the padded silence as well
+        xa_kv = xa[:, :kv_frames]
+    cross_kv = wmodel.precompute_cross_kv(model, xa_kv, quantize=kv_int8)
     cache = wmodel.init_kv_cache(dims, b, total, dtype=model.dtype,
                                  device=dev)
     tokens = torch.full((b, total), eot, dtype=torch.long, device=dev)
@@ -256,7 +295,7 @@ def _decode_loop(model, xa: torch.Tensor, prompt: np.ndarray,
                                and sot_index < sample_begin - 1) else None)
         pf_logits, cache = wmodel.decode_prefill(
             model, tokens[:, :sample_begin - 1], cache, cross_kv,
-            logits_at=ns_at)
+            logits_at=ns_at, cross_mode=cross_mode)
         if ns_at is not None:
             ns_prob = torch.softmax(pf_logits, dim=-1)[:, no_speech]
         start = sample_begin
@@ -266,10 +305,12 @@ def _decode_loop(model, xa: torch.Tensor, prompt: np.ndarray,
     has_ts = torch.zeros(b, dtype=torch.bool, device=dev)
     last_ts_tok = torch.zeros(b, dtype=torch.long, device=dev)
     eot_t = torch.tensor(eot, device=dev)
+    min_margin = torch.full((b,), float("inf"), device=dev)
     i = start
     while i < total and not bool(finished.all()):
         logits, cache = wmodel.decode_step(model, tokens[:, i - 1:i], i - 1,
-                                           cache, cross_kv)
+                                           cache, cross_kv,
+                                           cross_mode=cross_mode)
         if no_speech is not None and i == sot_index + 1:
             ns_prob = torch.softmax(logits, dim=-1)[:, no_speech]
         is_prompt = i < sample_begin
@@ -284,6 +325,17 @@ def _decode_loop(model, xa: torch.Tensor, prompt: np.ndarray,
             next_tok = tokens[:, pos].clone()
         else:
             next_sampled = filtered.argmax(dim=-1)
+            if track_margin:
+                # the gap a logit perturbation must exceed to flip this
+                # step's token: a second max with exactly the argmax index
+                # masked, so a tie at the top gives 0
+                f32 = filtered.float()
+                second = f32.masked_fill(
+                    vocab_ids[None, :] == next_sampled[:, None],
+                    _NEG_INF).amax(dim=-1)
+                min_margin = torch.where(
+                    finished, min_margin,
+                    torch.minimum(min_margin, f32.amax(dim=-1) - second))
             # greedy picks the max: its log-softmax value is max - logsumexp
             chosen_lp = (filtered.amax(dim=-1)
                          - torch.logsumexp(filtered, dim=-1))
@@ -295,42 +347,85 @@ def _decode_loop(model, xa: torch.Tensor, prompt: np.ndarray,
             finished = finished | (next_tok == eot)
         tokens[:, pos] = next_tok
         i += 1
-    return tokens, sum_lp, ns_prob, i - 1, cross_kv
+    return tokens, sum_lp, ns_prob, i - 1, cross_kv, min_margin
 
 
 @torch.no_grad()
 def decode(model, tokenizer, mel: torch.Tensor,
            options: Optional[DecodingOptions] = None,
            return_xa: bool = False, return_cross_kv: bool = False,
-           xa: Optional[torch.Tensor] = None, device=None):
+           xa: Optional[torch.Tensor] = None, device=None,
+           kv_frames: Optional[int] = None, kv_int8: bool = False,
+           kv_int8_guard: Optional[float] = None,
+           kv_frames_guard: Optional[float] = None):
     """Transcribe a batch of mels (B, n_mels, 2*n_audio_ctx), or one
     (n_mels, frames). Returns one DecodingResult per utterance (a single
     result for unbatched input). ``return_xa`` adds the encoder states
     (``(results, xa)``); ``return_cross_kv`` adds them and the loop's cross
     K/V stacks (``(results, xa, cross_kv)``) for reuse by the capture pass.
-    ``xa`` supplies precomputed encoder states and skips the encoder."""
+    ``xa`` supplies precomputed encoder states and skips the encoder.
+
+    Opt-in modes, none equal to the reference: ``kv_frames`` attends over
+    the first kv_frames encoder frames only; ``kv_int8`` stores the cross
+    K/V as int8 (its step runs as ``WCA_CROSS_ATTN`` says). The guards
+    ``kv_int8_guard`` / ``kv_frames_guard`` (logit margins) track each
+    sampled step's top1-top2 gap; rows whose smallest gap falls below the
+    sum of the active guards are re-decoded, reusing xa, with the guarded
+    modes off, and merged in. ``kv_int8_guard`` implies ``kv_int8``;
+    ``kv_frames_guard`` needs ``kv_frames``."""
     dev = wmodel._check_device(model, device)
     dims = model.dims
     (options, single, mel, sample_begin, sample_len, sot_index, prompt_arr,
      suppress_mask, blank_mask, max_initial_ts_index) = _decode_plan(
          dims, tokenizer, mel, options)
+    if kv_int8_guard is not None:
+        kv_int8 = True  # the guard is a mode of the int8 path
+    if kv_frames_guard is not None and kv_frames is None:
+        raise ValueError(
+            "kv_frames_guard guards the frame-bucketed decode: pass kv_frames "
+            "(decode_frame_bucket > 0) alongside it")
+    # the two perturbations compose additively in the worst case
+    guard = ((kv_int8_guard or 0.0) + (kv_frames_guard or 0.0)
+             if (kv_int8_guard is not None or kv_frames_guard is not None)
+             else None)
     if xa is None:
         xa = wmodel.encode_audio(model, mel.to(dev), device=dev.type)
-    tokens, sum_lp, ns_prob, n_steps, cross_kv = _decode_loop(
-        model, xa, prompt_arr,
-        torch.from_numpy(suppress_mask).to(dev),
-        torch.from_numpy(blank_mask).to(dev),
-        sample_begin=sample_begin, max_steps=sample_len,
-        ts_begin=tokenizer.timestamp_begin, eot=tokenizer.eot,
-        no_timestamps=tokenizer.no_timestamps, no_speech=tokenizer.no_speech,
-        max_initial_ts_index=max_initial_ts_index,
-        use_timestamps=not options.without_timestamps, sot_index=sot_index)
 
-    from ..text.tokenizer import normalize_language
+    def loop(frames, int8, track):
+        return _decode_loop(
+            model, xa, prompt_arr,
+            torch.from_numpy(suppress_mask).to(dev),
+            torch.from_numpy(blank_mask).to(dev),
+            sample_begin=sample_begin, max_steps=sample_len,
+            ts_begin=tokenizer.timestamp_begin, eot=tokenizer.eot,
+            no_timestamps=tokenizer.no_timestamps,
+            no_speech=tokenizer.no_speech,
+            max_initial_ts_index=max_initial_ts_index,
+            use_timestamps=not options.without_timestamps,
+            sot_index=sot_index, kv_frames=frames, kv_int8=int8,
+            cross_mode=wmodel.cross_attn_mode(dev) if int8 else "xla",
+            track_margin=track)
 
+    tokens, sum_lp, ns_prob, n_steps, cross_kv, margin = loop(
+        kv_frames, kv_int8, guard is not None)
     tokens = tokens.cpu().numpy()
     sum_lp = sum_lp.cpu().numpy()
     ns_prob = ns_prob.cpu().numpy()
+    margin = margin.cpu().numpy()
+    if guard is not None:
+        flagged = margin < guard
+        if flagged.any():
+            # only the guarded perturbations go: an unguarded mode passed
+            # beside a guarded one was opted into without a parity claim
+            et, es, en, _, _, _ = loop(
+                None if kv_frames_guard is not None else kv_frames,
+                False if kv_int8_guard is not None else kv_int8, False)
+            tokens = np.where(flagged[:, None], et.cpu().numpy(), tokens)
+            sum_lp = np.where(flagged, es.cpu().numpy(), sum_lp)
+            ns_prob = np.where(flagged, en.cpu().numpy(), ns_prob)
+
+    from ..text.tokenizer import normalize_language
+
     lang = normalize_language(options.language) or (tokenizer.language or "en")
     results = []
     for k in range(tokens.shape[0]):
@@ -343,7 +438,9 @@ def decode(model, tokenizer, mel: torch.Tensor,
         results.append(DecodingResult(
             language=lang, tokens=seq, text=text, avg_logprob=float(avg_lp),
             no_speech_prob=float(ns_prob[k]), temperature=options.temperature,
-            compression_ratio=ratio, n_steps=int(n_steps)))
+            compression_ratio=ratio, n_steps=int(n_steps),
+            min_margin=(float(margin[k]) if guard is not None
+                        else float("nan"))))
     out = results[0] if single else results
     if return_cross_kv:
         return out, xa, cross_kv

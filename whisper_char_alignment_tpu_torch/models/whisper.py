@@ -25,11 +25,17 @@ Math parity notes (vs whisper.model and the JAX package):
   width is given, so the raw (L, B, H, T, F) logit stack is never held.
 - the self-attention cache is updated in place (one column per step), where
   the JAX package returns a new cache.
+- with int8 cross K/V (``precompute_cross_kv(..., quantize=True)``) a decode
+  step's cross-attention runs as ``WCA_CROSS_ATTN`` says
+  (:func:`cross_attn_mode`): the int8-product step (``mxu``), the kernel of
+  ``ops/cross_attn_cuda.py`` (``pallas``), or dequantize-then-attend
+  (``xla``); the prefill never takes the kernel.
 """
 
 from __future__ import annotations
 
 import copy
+import os
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -38,6 +44,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import ModelDims
+from ..ops.cross_attn_cuda import cross_attn_step_int8
 from ..ops.encoder_attn_cuda import encoder_self_attention
 from ..ops.qkpost_cuda import qk_postprocess
 from ..utils.device import resolve_device
@@ -246,12 +253,26 @@ def _qkv_attention(attn: MultiHeadAttention, x, xa, mask=None):
     return _linear(attn.out, _merge_heads(o)), qk
 
 
-def _cross_attention_kv(attn: MultiHeadAttention, x, ck, cv):
-    """Cross-attention against precomputed (B, H, hd, F) K/V."""
+def _cross_attention_kv(attn: MultiHeadAttention, x, ck, cv,
+                        mode: str = "xla", step: bool = False):
+    """Cross-attention against precomputed (B, H, hd, F) K/V. Int8 K/V
+    (``(codes, scales)`` pairs) run as ``mode`` says: ``mxu``
+    (:func:`_cross_attn_step_int8_mxu`), ``kernel`` (the cross-attention
+    kernel; decode steps only, ``step=True``) or ``xla`` (dequantize in the
+    compute dtype, then attend). The returned logits are None on the int8
+    paths other than ``xla``."""
     n_head = attn.n_head
     scale = (x.shape[-1] // n_head) ** -0.25
     q = _split_heads(_linear(attn.query, x), n_head) * scale
-    o, qk = _attend(q, ck.to(x.dtype) * scale, cv.to(x.dtype), x.dtype)
+    if isinstance(ck, tuple) and mode == "mxu":
+        o, qk = _cross_attn_step_int8_mxu(q, ck, cv, scale, x.dtype), None
+    elif isinstance(ck, tuple) and mode == "kernel" and step:
+        o = cross_attn_step_int8(q, ck[0], ck[1], cv[0], cv[1],
+                                 k_scale=scale).to(x.dtype)
+        qk = None
+    else:
+        o, qk = _attend(q, _dequant(ck, x.dtype) * scale,
+                        _dequant(cv, x.dtype), x.dtype)
     return _linear(attn.out, _merge_heads(o)), qk
 
 
@@ -362,10 +383,34 @@ def init_kv_cache(dims: ModelDims, batch: int, max_len: int,
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
+_RECIP_127 = float(np.float32(1.0 / 127.0))
+
+
+def _scale_of(amax: torch.Tensor) -> torch.Tensor:
+    """``amax / 127`` as the JAX package's compiled quantizers evaluate it
+    (XLA turns the division by a constant into a product with the float32
+    reciprocal), and 1.0 where amax is 0."""
+    return torch.where(amax == 0, torch.ones_like(amax),
+                       amax * _RECIP_127)
+
+
+def quantize_cross_kv(x: torch.Tensor):
+    """int8 codes and float32 scales of (..., hd, F) K or V: one scale per
+    frame column over the head-dim axis (:func:`_scale_of` its amax); codes
+    ``clip(round(x / scale), -127, 127)``, a true division, round half to
+    even. Returns (codes int8 (..., hd, F), scales (..., 1, F))."""
+    xf = x.float()
+    scale = _scale_of(xf.abs().amax(dim=-2, keepdim=True))
+    return torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8), scale
+
+
 @torch.no_grad()
-def precompute_cross_kv(model: Whisper, xa: torch.Tensor):
-    """Cross-attention K/V for every decoder layer, (L, B, H, hd, F) each
-    (un-quantized)."""
+def precompute_cross_kv(model: Whisper, xa: torch.Tensor,
+                        quantize: bool = False):
+    """Cross-attention K/V for every decoder layer, (L, B, H, hd, F) each.
+    ``quantize=True`` stores each as ``(int8 codes, float32 scales (L, B, H,
+    1, F))`` (:func:`quantize_cross_kv`): half the bytes the decode loop
+    re-reads every step."""
     xa = xa.to(dtype=model.dtype)
     ks, vs = [], []
     for blk in model.decoder.blocks:
@@ -374,15 +419,81 @@ def precompute_cross_kv(model: Whisper, xa: torch.Tensor):
                                n_head).transpose(-1, -2))
         vs.append(_split_heads(_linear(blk.cross_attn.value, xa),
                                n_head).transpose(-1, -2))
-    return torch.stack(ks), torch.stack(vs)
+    ks, vs = torch.stack(ks), torch.stack(vs)
+    if not quantize:
+        return ks, vs
+    return quantize_cross_kv(ks), quantize_cross_kv(vs)
+
+
+def _dequant(c, dtype: torch.dtype) -> torch.Tensor:
+    """Float K or V in ``dtype``: int8 codes times their scales, both cast
+    to ``dtype`` first (the JAX package's rounding in bf16)."""
+    if isinstance(c, tuple):
+        return c[0].to(dtype) * c[1].to(dtype)
+    return c.to(dtype)
+
+
+def _int8_rowwise(x: torch.Tensor):
+    """Quantize the trailing axis per row: (int8 codes, float32 scales)."""
+    scale = _scale_of(x.abs().amax(dim=-1, keepdim=True))
+    return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8), scale
+
+
+def _cross_attn_step_int8_mxu(qc, ck, cv, k_scale: float, dtype):
+    """Cross-attention whose two products take the int8 K/V codes directly.
+
+    qc (B, H, T, hd) already * hd**-0.25; ck/cv (int8 (B, H, hd, F), float32
+    scales (B, H, 1, F)). q is quantized per row, so ``q8 . k8`` is an exact
+    integer product; the per-frame V scale folds into the softmax
+    probabilities before their own row quantization:
+    ``out = (w8 . v8) * w_s``. The integer products are exact: q8 . k8 over
+    hd=64 stays below 2**24 (float32), w8 . v8 over F=1500 may not, so it is
+    taken in float64."""
+    k8, k_s = ck
+    v8, v_s = cv
+    q8, q_s = _int8_rowwise(qc.float() * k_scale)
+    qk = torch.matmul(q8.float(), k8.float()) * q_s * k_s
+    w = torch.softmax(qk, dim=-1)
+    w8, w_s = _int8_rowwise(w * v_s)
+    o = torch.matmul(w8.double(), v8.double().transpose(-1, -2))
+    return (o.float() * w_s).to(dtype)
+
+
+def cross_attn_mode(device) -> str:
+    """The int8 decode cross-attention (env ``WCA_CROSS_ATTN``), consulted
+    only when the K/V are quantized: ``auto`` (default) gives ``mxu`` on a
+    CUDA model and ``xla`` on a CPU model; ``mxu``/``int8mxu``;
+    ``pallas``/``1``/``on``/``true`` select the kernel (``kernel``);
+    ``xla``/``0``/``off``/``false`` dequantize. Anything else raises."""
+    mode = os.environ.get("WCA_CROSS_ATTN", "auto")
+    if mode == "auto":
+        return "mxu" if torch.device(device).type == "cuda" else "xla"
+    if mode in ("0", "off", "false", "xla"):
+        return "xla"
+    if mode in ("mxu", "int8mxu"):
+        return "mxu"
+    if mode in ("1", "on", "true", "pallas"):
+        return "kernel"
+    raise ValueError(f"WCA_CROSS_ATTN={mode!r} is not a known mode; use one "
+                     "of auto / mxu / pallas / xla (off)")
+
+
+def _layer_kv(c, layer: int):
+    """One layer of a cross K or V stack, plain or ``(codes, scales)``."""
+    if isinstance(c, tuple):
+        return c[0][layer], c[1][layer]
+    return c[layer]
 
 
 def _cached_layers(model: Whisper, x, cache: Cache, cross_kv, start: int,
-                   mask: Optional[torch.Tensor]):
+                   mask: Optional[torch.Tensor], cross_mode: str = "xla",
+                   step: bool = False):
     """Run the decoder blocks over x (B, P, d) at positions start..start+P-1,
     writing the P new self-attention K/V columns into ``cache`` in place.
     Position row t attends to cache columns <= start + t (``mask`` holds the
-    causal part within the window; earlier columns are all visible)."""
+    causal part within the window; earlier columns are all visible).
+    ``cross_mode`` and ``step`` pick the int8 cross-attention
+    (:func:`_cross_attention_kv`)."""
     dtype = model.dtype
     p = x.shape[1]
     end = start + p
@@ -403,7 +514,9 @@ def _cached_layers(model: Whisper, x, cache: Cache, cross_kv, start: int,
         x = x + _linear(attn.out, _merge_heads(a))
         c, _ = _cross_attention_kv(blk.cross_attn,
                                    _layer_norm(blk.cross_attn_ln, x),
-                                   cross_ks[layer], cross_vs[layer])
+                                   _layer_kv(cross_ks, layer),
+                                   _layer_kv(cross_vs, layer),
+                                   mode=cross_mode, step=step)
         x = x + c
         x = x + _mlp(blk, x)
     return x
@@ -411,28 +524,38 @@ def _cached_layers(model: Whisper, x, cache: Cache, cross_kv, start: int,
 
 @torch.no_grad()
 def decode_step(model: Whisper, tokens: torch.Tensor, pos: int, cache: Cache,
-                cross_kv):
+                cross_kv, cross_mode: Optional[str] = None):
     """One autoregressive decoder step: tokens (B, 1) at position ``pos``;
     ``cache`` holds self-attention K/V for positions < pos and gains column
-    ``pos`` in place. Returns (logits (B, vocab) f32, cache)."""
+    ``pos`` in place. Returns (logits (B, vocab) f32, cache).
+    ``cross_mode=None`` resolves ``WCA_CROSS_ATTN`` (:func:`cross_attn_mode`);
+    it matters only for int8 cross K/V."""
+    if cross_mode is None:
+        cross_mode = cross_attn_mode(model.device)
     dec = model.decoder
     x = (dec.token_embedding.weight[tokens[:, 0]]
          + dec.positional_embedding[pos])[:, None, :]
-    x = _cached_layers(model, x, cache, cross_kv, pos, None)
+    x = _cached_layers(model, x, cache, cross_kv, pos, None,
+                       cross_mode=cross_mode, step=True)
     return _logits(model, _layer_norm(dec.ln, x[:, 0])), cache
 
 
 @torch.no_grad()
 def decode_prefill(model: Whisper, tokens: torch.Tensor, cache: Cache,
-                   cross_kv, logits_at: Optional[int] = None):
+                   cross_kv, logits_at: Optional[int] = None,
+                   cross_mode: Optional[str] = None):
     """Consume the decode prompt (B, P) in one teacher-forced pass, writing
     cache columns 0..P-1. Returns (logits (B, vocab) f32 at position
-    ``logits_at``, or None to skip the lm head, cache)."""
+    ``logits_at``, or None to skip the lm head, cache). With int8 cross K/V
+    the prefill takes the ``mxu`` step or dequantizes, never the kernel (it
+    runs once per decode)."""
+    if cross_mode is None:
+        cross_mode = cross_attn_mode(model.device)
     dec = model.decoder
     p = tokens.shape[1]
     x = dec.token_embedding.weight[tokens] + dec.positional_embedding[:p]
     x = _cached_layers(model, x, cache, cross_kv, 0,
-                       _causal_mask(p, x.device))
+                       _causal_mask(p, x.device), cross_mode=cross_mode)
     if logits_at is None:
         return None, cache
     return _logits(model, _layer_norm(dec.ln, x[:, logits_at])), cache

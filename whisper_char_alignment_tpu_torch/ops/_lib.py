@@ -42,19 +42,30 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # (QK_MAX_WIDTH in csrc/qkpost.cu)
 QKPOST_MAX_WIDTH = 15
 
-LAUNCHES: Dict[str, int] = {"encoder_attn": 0, "qkpost": 0, "dtw_trace": 0,
-                            "dtw_backtrace": 0}
+LAUNCHES: Dict[str, int] = {
+    "encoder_attn": 0, "encoder_attn_kt": 0, "qkpost": 0, "dtw_trace": 0,
+    "dtw_backtrace": 0, "cross_attn_int8": 0, "cross_attn": 0, "mel": 0}
 
 _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # q, k, v, o, batch*heads, T, n_valid, head_dim, is_bf16, stream
     "wca_encoder_attn": [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _vp],
+    # q, k (bh, hd, T), v, o, batch*heads, T, n_valid, head_dim, is_bf16, stream
+    "wca_encoder_attn_kt": [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _vp],
     # qk, out, frame_len, token_len, B, H, T, F, width, qk_scale, stream
     "wca_qkpost": [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _f, _vp],
     # x, trace, B, N, M, stream
     "wca_dtw_trace": [_vp, _vp, _i, _i, _i, _vp],
     # trace, n, m, jump, B, N, M, stream
     "wca_dtw_backtrace": [_vp, _vp, _vp, _vp, _i, _i, _i, _vp],
+    # q, k8, k_s, v8, v_s, o, batch*heads, head_dim, F, k_scale, stream
+    "wca_cross_attn_int8": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _f,
+                            _vp],
+    # q, k, v, o, batch*heads, head_dim, F, k_scale, is_bf16, stream
+    "wca_cross_attn": [_vp, _vp, _vp, _vp, _i, _i, _i, _f, _i, _vp],
+    # audio, window, cos column, sin column, filterbank, lo, hi, out, B,
+    # n_samples, n_frames, n_mels, stream
+    "wca_mel": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _vp],
 }
 
 _lock = threading.Lock()

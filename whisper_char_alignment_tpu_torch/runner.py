@@ -107,18 +107,12 @@ def _utt_wire_i16(u: Utterance):
 
 
 def _reject_unported(cfg: AlignConfig) -> None:
-    if cfg.decode_kv_int8 or cfg.decode_kv_int8_guarded:
-        raise not_ported("decode_kv_int8 (int8 cross K/V)", "quantized")
-    if cfg.decode_frame_bucket > 0 or cfg.decode_frame_bucket_guarded:
-        raise not_ported("decode_frame_bucket (bucketed decode)", "quantized")
     if cfg.encoder_int8:
         raise not_ported("encoder_int8", "quantized")
     if cfg.default_whisper_timing:
         raise not_ported("default_whisper_timing", "default_timing")
     if cfg.data_parallel > 1 or cfg.tensor_parallel > 1:
         raise not_ported("data_parallel/tensor_parallel above 1", "parallel")
-    if os.environ.get("WCA_MEL_IMPL", "xla") == "pallas":
-        raise not_ported("WCA_MEL_IMPL=pallas (the mel kernel)", "mel_kernel")
 
 
 class AlignmentPipeline:
@@ -131,6 +125,11 @@ class AlignmentPipeline:
         if mesh is not None:
             raise not_ported("a device mesh", "parallel")
         _reject_unported(cfg)
+        if cfg.decode_frame_bucket_guarded and cfg.decode_frame_bucket <= 0:
+            raise ValueError(
+                "decode_frame_bucket_guarded guards the frame-bucketed "
+                "decode: set decode_frame_bucket to the bucket multiple "
+                "(e.g. 128) alongside it")
         self.device = resolve_device(device)
         self.compute_dtype = compute_dtype
         self.dims = model.dims
@@ -144,6 +143,28 @@ class AlignmentPipeline:
             language=tokenizer.language or "en",
             sample_len=cfg.decode_sample_len or None)
         self.stage_seconds = defaultdict(float)
+        # per-utterance min top1-top2 logit margins of the aligned batches,
+        # filled only when a guard tracked them (flag_rate)
+        self.min_margins: List[float] = []
+
+    def active_guard_margin(self) -> Optional[float]:
+        """Sum of the active guards (an utterance re-decodes when its min
+        margin is below it), or None when no guarded mode is set."""
+        total, active = 0.0, False
+        if self.cfg.decode_kv_int8_guarded:
+            total += decoding.default_guard_margin()
+            active = True
+        if self.cfg.decode_frame_bucket_guarded:
+            total += decoding.default_bucket_guard_margin()
+            active = True
+        return total if active else None
+
+    def flag_rate(self) -> Optional[float]:
+        """Fraction of margin-tracked utterances the guard re-decoded."""
+        guard = self.active_guard_margin()
+        if guard is None or not self.min_margins:
+            return None
+        return float(np.mean(np.asarray(self.min_margins) < guard))
 
     @contextlib.contextmanager
     def _stage(self, name: str):
@@ -189,18 +210,34 @@ class AlignmentPipeline:
         with self._stage("encoder"):
             xa = wmodel.encode_audio(self.model, mel,
                                      device=self.device.type)
-        # cross-K/V reuse: keep the decode loop's K/V alive through the
-        # capture pass when they fit the budget (WCA_REUSE_KV_MAX_BYTES,
-        # default 8e9 bytes); the JAX package divides it among the batches
-        # its pipeline keeps in flight, here one batch is live at a time
-        reuse_kv = (self.cfg.reuse_cross_kv
+        cfg = self.cfg
+        kv_frames = None
+        if cfg.decode_frame_bucket > 0:
+            max_fl = max(max(u.duration // constants.AUDIO_SAMPLES_PER_TOKEN, 1)
+                         for u in utts)
+            kv_frames = min(self.dims.n_audio_ctx,
+                            _pad_to_multiple(int(max_fl),
+                                             cfg.decode_frame_bucket))
+        kv_int8 = cfg.decode_kv_int8 or cfg.decode_kv_int8_guarded
+        # cross-K/V reuse: only when the decode loop's K/V are the capture
+        # pass's own (full frames, not quantized), and when they fit the
+        # budget (WCA_REUSE_KV_MAX_BYTES, default 8e9 bytes); the JAX package
+        # divides it among the batches its pipeline keeps in flight, here
+        # one batch is live at a time
+        reuse_kv = (cfg.reuse_cross_kv and kv_frames is None and not kv_int8
                     and _cross_kv_bytes(self.dims, b_pad, self.compute_dtype)
                     <= int(float(os.environ.get("WCA_REUSE_KV_MAX_BYTES",
                                                 8e9))))
         with self._stage("decode"):
             results, xa, cross_kv = decoding.decode(
                 self.model, self.tokenizer, mel, self.options,
-                return_cross_kv=True, xa=xa, device=self.device.type)
+                return_cross_kv=True, xa=xa, device=self.device.type,
+                kv_frames=kv_frames, kv_int8=kv_int8,
+                kv_int8_guard=(decoding.default_guard_margin()
+                               if cfg.decode_kv_int8_guarded else None),
+                kv_frames_guard=(decoding.default_bucket_guard_margin()
+                                 if cfg.decode_frame_bucket_guarded
+                                 else None))
         return dict(utts=utts, results=results, mel=mel, xa=xa,
                     cross_kv=cross_kv if reuse_kv else None)
 
@@ -221,6 +258,9 @@ class AlignmentPipeline:
         utts = tp["utts"]
         xa = tp["xa"]
         transcripts = [r.text for r in tp["results"][:len(utts)]]
+        self.min_margins.extend(float(r.min_margin)
+                                for r in tp["results"][:len(utts)]
+                                if np.isfinite(r.min_margin))
 
         with self._stage("retokenize"):
             prepared = []

@@ -9,10 +9,9 @@ from __future__ import annotations
 ROADMAP_ITEMS = {
     "checkpoints": "ROADMAP.md queue 1, item 2 (checkpoint formats)",
     "decoding": "ROADMAP.md queue 1, item 4 (decoding modes)",
-    "quantized": "ROADMAP.md queue 1, item 7 (int8 and bucketed modes)",
+    "quantized": "ROADMAP.md queue 1, item 7 (int8 encoder)",
     "default_timing": "ROADMAP.md queue 1, item 8 (Whisper's default timing)",
     "parallel": "ROADMAP.md queue 1, item 9 (multi-GPU)",
-    "mel_kernel": "ROADMAP.md queue 2, row 6 (mel kernel)",
 }
 
 
