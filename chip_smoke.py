@@ -15,18 +15,24 @@ Phases (any failure exits non-zero and prints no final line):
    (B=16, N<=120, M=1500) on tied integer and random costs (bit-equal); the
    decode cross-attention (B=8, H=16, hd=64) over int8 and bf16 K/V at
    F=1500 and at the bucket F=384; the mel frontend (B=8, 30 s) at 80 and
-   128 mels. Each kernel is timed with CUDA events (warmed up, mean over 20
-   launches) beside its plain version, its bound, and, where one PyTorch
-   call computes the same function, that call.
+   128 mels. Each kernel is timed from a ``torch.profiler`` trace (its own
+   device time, mean over 20 launches after warmup) beside its plain
+   version (CUDA events), its bound, and, where one PyTorch call computes
+   the same function, that call; the plain int8 step of the ``mxu`` mode is
+   timed beside the cross-attention kernel.
 3. The port's main path, ``AlignmentPipeline.run_dataset`` at Whisper-medium
    width (random weights from torch.Generator seed 0, bf16, toy tokenizer,
    16 synthetic utterances of 2-7 s), twice: as configured by default, and
    with int8 cross K/V, a 128-frame decode bucket, ``WCA_CROSS_ATTN=pallas``
    and ``WCA_MEL_IMPL=pallas``. Each run's launch counts are reset before it
    and must be exact after it; alignment sanity checks and a NumPy DTW
-   recompute of one batch follow each. Then one batch with both margin
-   guards: every flagged row must carry the exact decode's tokens. A tiny
-   f32 model is also held against the CPU path (plain versions).
+   recompute of one batch follow each. The decode stage of that int8 +
+   bucket pipeline is then timed under ``WCA_CROSS_ATTN=mxu`` and
+   ``pallas``, alternately. Then one batch with both margin guards, set so
+   that some rows are flagged and some are not: the pipeline's own decode
+   must give each flagged row the exact decode's tokens and each other row
+   the int8 + bucket decode's. A tiny f32 model is also held against the
+   CPU path (plain versions).
 4. A JSON line of per-kernel numbers, then
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
@@ -99,17 +105,35 @@ def device_ms(fn, kernel: str = "", iters: int = 20, warmup: int = 3):
     return us / iters / 1e3 if us > 0 else None
 
 
-def kernel_ms(fn, kernel: str, bound_ms: float) -> float:
-    """The device time per call of the kernels named ``kernel`` (all the
-    call's device work when empty; :func:`device_ms`). Where the trace holds
-    none, or less than the card's bound for the work (so it missed some of
-    the work's kernels), the CUDA-event time of the whole call instead."""
-    ms = device_ms(fn, kernel)
-    if ms is None or ms < bound_ms:
-        log(f"  traced device time {ms} ms for {kernel or 'the call'} is "
-            f"missing or below the bound {bound_ms:.4g} ms: CUDA events")
-        ms = cuda_ms(fn)
-    return ms
+def kernel_ms(fn, kernel: str, bound_ms: float, tries: int = 3):
+    """(ms, method): the device time per call of the kernel named
+    ``kernel`` (:func:`device_ms`), ``"trace"``. A traced time below the
+    card's bound for the work is impossible, so it fails: the bound or its
+    byte count is wrong. A trace that holds no record of the kernel is taken
+    again, up to ``tries`` times; only then the CUDA-event time of the whole
+    call (host time included) stands in, ``"events"``."""
+    for _ in range(tries):
+        ms = device_ms(fn, kernel)
+        if ms is not None:
+            check(ms >= bound_ms, f"{kernel}: traced {ms:.4g} ms is below "
+                  f"its bound {bound_ms:.4g} ms")
+            return ms, "trace"
+        log(f"  the trace holds no {kernel}: tracing again")
+    log(f"  {tries} traces held no {kernel}: CUDA events of the whole call")
+    return cuda_ms(fn), "events"
+
+
+def library_ms(fn, bound_ms: float):
+    """(ms, method): the device time per call of a PyTorch call, all its
+    device work (:func:`device_ms`), ``"trace"``. Where the trace holds none,
+    or less than the bound (it missed some of the call's kernels), the
+    CUDA-event time of the whole call, ``"events"``."""
+    ms = device_ms(fn)
+    if ms is not None and ms >= bound_ms:
+        return ms, "trace"
+    log(f"  traced device time {ms} ms of the library call is missing or "
+        f"below the bound {bound_ms:.4g} ms: CUDA events")
+    return cuda_ms(fn), "events"
 
 
 def check(cond: bool, what: str) -> None:
@@ -152,8 +176,8 @@ def kernel_phase():
         nbytes = 4 * b * h * t * hd * q.element_size()
         peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
         bound = max(ops / peak, nbytes / HBM_BYTES_PER_S) * 1e3
-        sdpa_ms = kernel_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, scale=1.0), "", bound)
+        sdpa_ms, sdpa_method = library_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0), bound)
         for name, fn, plain, replaces in variants:
             worst = 0.0
             for n_valid in (t, 1000):
@@ -169,23 +193,23 @@ def kernel_phase():
                 worst = max(worst, err.max().item())
                 log(f"{name} {str(dtype)[6:]} n_valid={n_valid}: max abs "
                     f"err {err.max().item():.3g} (tol {tol})")
-            ms = kernel_ms(lambda: fn(q, k, v, t), "encoder_attn_kernel",
-                           bound)
+            ms, method = kernel_ms(lambda: fn(q, k, v, t),
+                                   "encoder_attn_kernel", bound)
             call_ms = cuda_ms(lambda: fn(q, k, v, t))
             plain_ms = cuda_ms(lambda: plain(q, k, v, t), iters=3, warmup=1)
             log(f"{name} {str(dtype)[6:]} (8,16,1500,64): kernel {ms:.4f} ms"
-                f" (whole call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, "
-                f"sdpa {sdpa_ms:.4f} ms, bound {bound:.4f} ms "
-                f"({ops / 1e9:.1f} GFLOP)")
+                f" ({method}; whole call {call_ms:.4f} ms), plain "
+                f"{plain_ms:.4f} ms, sdpa {sdpa_ms:.4f} ms ({sdpa_method}), "
+                f"bound {bound:.4f} ms ({ops / 1e9:.1f} GFLOP)")
             if dtype == torch.bfloat16:
                 rows[name] = dict(
                     name=name, route="cuda",
                     source="whisper_char_alignment_tpu_torch/csrc/encoder_attn.cu",
                     replaces=replaces, max_abs_err=worst, ms=ms,
-                    plain_ms=plain_ms, bound_ms=bound,
+                    ms_method=method, plain_ms=plain_ms, bound_ms=bound,
                     bound_by="operations"
                     if ops / peak > nbytes / HBM_BYTES_PER_S else "bytes",
-                    library_ms=sdpa_ms)
+                    library_ms=sdpa_ms, library_ms_method=sdpa_method)
     del q32, k32, v32, q, k, v
 
     # -- QK post-process -----------------------------------------------------
@@ -207,17 +231,18 @@ def kernel_phase():
     nbytes = 2 * b * h * t * f * 4 + 2 * b * 4
     ops = b * h * t * f * 8  # 3 compare-exchanges, scale, exp, sum, divide
     bound = max(nbytes / HBM_BYTES_PER_S, ops / PEAK_F32) * 1e3
-    ms = kernel_ms(lambda: qkpost_cuda.qk_postprocess(
+    ms, method = kernel_ms(lambda: qkpost_cuda.qk_postprocess(
         qk, frame_len, token_len, 3), "qkpost_kernel", bound)
     plain_ms = cuda_ms(lambda: qkpost_cuda.qk_postprocess_plain(
         qk, frame_len, token_len, 3), iters=5, warmup=1)
-    log(f"qkpost (8,16,96,1500) w=3: kernel {ms:.4f} ms, plain "
+    log(f"qkpost (8,16,96,1500) w=3: kernel {ms:.4f} ms ({method}), plain "
         f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.0f} MB)")
     rows["qkpost"] = dict(
         name="qkpost", route="cuda",
         source="whisper_char_alignment_tpu_torch/csrc/qkpost.cu",
         replaces="whisper_char_alignment_tpu/ops/qkpost_pallas.py:111",
-        max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+        max_abs_err=worst, ms=ms, ms_method=method, plain_ms=plain_ms,
+        bound_ms=bound,
         bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= ops / PEAK_F32
         else "operations", library_ms=None)
     del qk
@@ -251,32 +276,36 @@ def kernel_phase():
     steps = int((n_len + m_len).sum())
     bt_bytes = steps + b * (n + 1) * 4 + 2 * b * 4
     bt_bound = max(bt_bytes / HBM_BYTES_PER_S, steps * 4 / PEAK_F32) * 1e3
-    ms_tr = kernel_ms(lambda: dtw_cuda.dtw_trace(rand), "dtw_trace_kernel",
-                      tr_bound)
+    ms_tr, method_tr = kernel_ms(lambda: dtw_cuda.dtw_trace(rand),
+                                 "dtw_trace_kernel", tr_bound)
     plain_tr = cuda_ms(lambda: dtw_cuda.dtw_trace_plain(rand), iters=3,
                        warmup=1)
     tr = dtw_cuda.dtw_trace(rand)
-    ms_bt = kernel_ms(lambda: dtw_cuda.dtw_backtrace_jump(tr, n_len, m_len),
-                      "dtw_backtrace_kernel", bt_bound)
+    ms_bt, method_bt = kernel_ms(
+        lambda: dtw_cuda.dtw_backtrace_jump(tr, n_len, m_len),
+        "dtw_backtrace_kernel", bt_bound)
     plain_bt = cuda_ms(lambda: dtw_cuda.dtw_jump_frames_plain(
         tr, n_len, m_len), iters=3, warmup=1)
-    log(f"dtw trace (16,120,1500): kernel {ms_tr:.4f} ms, plain {plain_tr:.4f}"
-        f" ms, bound {tr_bound:.5f} ms; {d} dependent diagonal steps")
-    log(f"dtw backtrace: kernel {ms_bt:.4f} ms, plain {plain_bt:.4f} ms, "
-        f"bound {bt_bound:.6f} ms; longest walk "
+    log(f"dtw trace (16,120,1500): kernel {ms_tr:.4f} ms ({method_tr}), "
+        f"plain {plain_tr:.4f} ms, bound {tr_bound:.5f} ms; {d} dependent "
+        "diagonal steps")
+    log(f"dtw backtrace: kernel {ms_bt:.4f} ms ({method_bt}), plain "
+        f"{plain_bt:.4f} ms, bound {bt_bound:.6f} ms; longest walk "
         f"{int((n_len + m_len).max())} dependent steps")
     rows["dtw_trace"] = dict(
         name="dtw_trace", route="cuda",
         source="whisper_char_alignment_tpu_torch/csrc/dtw.cu",
         replaces="whisper_char_alignment_tpu/ops/dtw_pallas.py:171",
-        max_abs_err=0.0, ms=ms_tr, plain_ms=plain_tr, bound_ms=tr_bound,
+        max_abs_err=0.0, ms=ms_tr, ms_method=method_tr, plain_ms=plain_tr,
+        bound_ms=tr_bound,
         bound_by="bytes" if tr_bytes / HBM_BYTES_PER_S >= tr_ops / PEAK_F32
         else "operations", library_ms=None)
     rows["dtw_backtrace"] = dict(
         name="dtw_backtrace", route="cuda",
         source="whisper_char_alignment_tpu_torch/csrc/dtw.cu",
         replaces="whisper_char_alignment_tpu/ops/dtw_pallas.py:290",
-        max_abs_err=0.0, ms=ms_bt, plain_ms=plain_bt, bound_ms=bt_bound,
+        max_abs_err=0.0, ms=ms_bt, ms_method=method_bt, plain_ms=plain_bt,
+        bound_ms=bt_bound,
         bound_by="bytes" if bt_bytes / HBM_BYTES_PER_S >= steps * 4 / PEAK_F32
         else "operations", library_ms=None)
     # row 5 (dtw_trace_batch) is the wavefront of row 3a returning its trace
@@ -297,8 +326,7 @@ def cross_attn_rows(gen):
     import torch
     import torch.nn.functional as F
 
-    from whisper_char_alignment_tpu_torch.models.whisper import \
-        quantize_cross_kv
+    from whisper_char_alignment_tpu_torch.models import whisper as wm
     from whisper_char_alignment_tpu_torch.ops import cross_attn_cuda as ca
 
     dev = torch.device("cuda")
@@ -310,7 +338,8 @@ def cross_attn_rows(gen):
              * k_scale).to(torch.bfloat16)
         kf, vf = (torch.randn((b, h, hd, f), generator=gen, device=dev)
                   for _ in range(2))
-        (k8, k_s), (v8, v_s) = quantize_cross_kv(kf), quantize_cross_kv(vf)
+        (k8, k_s), (v8, v_s) = (wm.quantize_cross_kv(kf),
+                                wm.quantize_cross_kv(vf))
         kb, vb = kf.to(torch.bfloat16), vf.to(torch.bfloat16)
         int8_args = (q, k8, k_s, v8, v_s)
         cases = (("cross_attn_int8", ca.cross_attn_step_int8,
@@ -330,21 +359,22 @@ def cross_attn_rows(gen):
             nbytes = kv_bytes + q.numel() * q.element_size() + out.numel() * 4
             ops = 4 * b * h * hd * f + 8 * b * h * f  # two products, softmax
             bound = max(nbytes / HBM_BYTES_PER_S, ops / PEAK_F32) * 1e3
-            ms = kernel_ms(lambda: fn(*args, k_scale=k_scale),
-                           "cross_attn_kernel", bound)
+            ms, method = kernel_ms(lambda: fn(*args, k_scale=k_scale),
+                                   "cross_attn_kernel", bound)
             call_ms = cuda_ms(lambda: fn(*args, k_scale=k_scale))
             plain_ms = cuda_ms(lambda: plain(*args, k_scale=k_scale))
-            library_ms = None
+            lib_ms = lib_method = None
             if name == "cross_attn":  # SDPA on K/V laid out (B, H, F, hd)
                 kt, vt = (x.transpose(-1, -2).contiguous() for x in (kb, vb))
-                library_ms = kernel_ms(lambda: F.scaled_dot_product_attention(
-                    q, kt, vt, scale=k_scale), "", bound)
+                lib_ms, lib_method = library_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        q, kt, vt, scale=k_scale), bound)
             log(f"{name} (8,16,64,{f}): max abs err {err.max().item():.3g} "
-                f"(tol 2e-5 + 2e-5 rel); kernel {ms:.4f} ms (whole call "
-                f"{call_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
-                f"{bound:.5f} ms "
-                f"({nbytes / 1e6:.1f} MB)"
-                + (f", sdpa {library_ms:.4f} ms" if library_ms else ""))
+                f"(tol 2e-5 + 2e-5 rel); kernel {ms:.4f} ms ({method}; "
+                f"whole call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+                f"bound {bound:.5f} ms ({nbytes / 1e6:.1f} MB)"
+                + (f", sdpa {lib_ms:.4f} ms ({lib_method})" if lib_ms
+                   else ""))
             # the int8 row at the bucket the main path takes, the bf16 row
             # (off every path) at the full window
             if (name == "cross_attn_int8") == (f == 384):
@@ -352,10 +382,16 @@ def cross_attn_rows(gen):
                     name=name, route="cuda",
                     source="whisper_char_alignment_tpu_torch/csrc/cross_attn.cu",
                     replaces=replaces, max_abs_err=err.max().item(), ms=ms,
-                    plain_ms=plain_ms, bound_ms=bound,
+                    ms_method=method, plain_ms=plain_ms, bound_ms=bound,
                     bound_by="bytes" if nbytes / HBM_BYTES_PER_S
                     >= ops / PEAK_F32 else "operations",
-                    library_ms=library_ms)
+                    library_ms=lib_ms, library_ms_method=lib_method)
+        # the int8 step the mxu mode takes instead of the kernel (plain
+        # PyTorch on the int8 codes), as the decode loop calls it
+        mxu = lambda: wm._cross_attn_step_int8_mxu(  # noqa: E731
+            q, (k8, k_s), (v8, v_s), k_scale, torch.bfloat16)
+        log(f"mxu int8 step (8,16,64,{f}): device {device_ms(mxu)} ms (all "
+            f"its kernels, traced), whole call {cuda_ms(mxu):.4f} ms")
     return rows
 
 
@@ -383,26 +419,33 @@ def mel_rows(gen):
         err = (out - ref).abs().max().item()
         check(err <= 1e-4, f"mel n_mels={n_mels}: max err {err:.3g}")
         fb_nonzeros = int(np.count_nonzero(mel_cuda._tables(n_mels)[3]))
-        # per frame: window, 400 x 201 complex products, power, the
-        # filterbank's nonzeros, the log; then clip and scale per value
-        ops = b * n_frames * (400 + 400 * 201 * 4 + 201 * 3
-                              + 2 * fb_nonzeros + 4 * n_mels)
+        # the function's own work per frame: window, a real 400-point FFT
+        # (2.5 N log2 N), power, the filterbank's nonzeros, the log
+        fft = 2.5 * 400 * np.log2(400)
+        rest = 400 + 201 * 3 + 2 * fb_nonzeros + 4 * n_mels
+        ops = b * n_frames * (fft + rest)
+        # the kernel's design does more: the DFT as 400 x 201 complex
+        # products per frame
+        design_ops = b * n_frames * (400 * 201 * 4 + rest)
         nbytes = 4 * b * n + 4 * b * n_mels * n_frames
         bound = max(ops / PEAK_F32, nbytes / HBM_BYTES_PER_S) * 1e3
-        ms = kernel_ms(lambda: mel_cuda.log_mel(audio, n_mels), "mel_kernel",
-                       bound)
+        ms, method = kernel_ms(lambda: mel_cuda.log_mel(audio, n_mels),
+                               "mel_kernel", bound)
         call_ms = cuda_ms(lambda: mel_cuda.log_mel(audio, n_mels))
         plain_ms = cuda_ms(lambda: mel_cuda.log_mel_plain(audio, n_mels))
         log(f"mel (8, 480000) n_mels={n_mels}: max abs err {err:.3g} "
-            f"(tol 1e-4); kernel {ms:.4f} ms (whole call with the clip "
-            f"{call_ms:.4f} ms), plain {plain_ms:.4f} ms, "
-            f"bound {bound:.4f} ms ({ops / 1e9:.2f} GFLOP)")
+            f"(tol 1e-4); kernel {ms:.4f} ms ({method}; whole call with the "
+            f"clip {call_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+            f"{bound:.5f} ms ({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP "
+            f"with an FFT); the DFT design's own work {design_ops / 1e9:.2f} "
+            f"GFLOP, {design_ops / PEAK_F32 * 1e3:.4f} ms at the f32 peak")
         if n_mels == 80:  # Whisper-medium's
             rows["mel"] = dict(
                 name="mel", route="cuda",
                 source="whisper_char_alignment_tpu_torch/csrc/mel.cu",
                 replaces="whisper_char_alignment_tpu/ops/mel_pallas.py:80",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                max_abs_err=err, ms=ms, ms_method=method, plain_ms=plain_ms,
+                bound_ms=bound,
                 bound_by="operations" if ops / PEAK_F32
                 >= nbytes / HBM_BYTES_PER_S else "bytes", library_ms=None)
     return rows
@@ -478,12 +521,15 @@ def tiny_vs_cpu() -> str:
 def spying(seen: dict):
     """Count, while the block runs, the decode steps by the kind of their
     cross K/V (int8 or float) and the frames they span, and the capture
-    passes that reuse the decode loop's K/V: the two module functions the
-    runner reaches are wrapped and restored after."""
+    passes that reuse the decode loop's K/V, and keep each batch's decode
+    results: the three module functions the runner reaches are wrapped and
+    restored after."""
     from whisper_char_alignment_tpu_torch.align import timing
+    from whisper_char_alignment_tpu_torch.models import decoding
     from whisper_char_alignment_tpu_torch.models import whisper as wm
 
-    step, attentions = wm.decode_step, timing.get_attentions
+    step, attentions, decode = (wm.decode_step, timing.get_attentions,
+                                decoding.decode)
 
     def counted_step(model, tokens, pos, cache, cross_kv, cross_mode=None):
         ck = cross_kv[0]
@@ -497,16 +543,23 @@ def spying(seen: dict):
         seen["reused"] += kwargs.get("cross_kv") is not None
         return attentions(*args, **kwargs)
 
-    wm.decode_step, timing.get_attentions = counted_step, counted_attentions
+    def kept_decode(*args, **kwargs):
+        out = decode(*args, **kwargs)
+        seen["results"].append(out[0] if isinstance(out, tuple) else out)
+        return out
+
+    wm.decode_step, timing.get_attentions, decoding.decode = (
+        counted_step, counted_attentions, kept_decode)
     try:
         yield
     finally:
-        wm.decode_step, timing.get_attentions = step, attentions
+        wm.decode_step, timing.get_attentions, decoding.decode = (
+            step, attentions, decode)
 
 
 def new_seen() -> dict:
     return dict(int8_steps=0, float_steps=0, frames=set(), captures=0,
-                reused=0)
+                reused=0, results=[])
 
 
 def check_alignments(results, dataset, n: int) -> None:
@@ -569,13 +622,54 @@ def drive(label: str, pipe, dataset, expected, card: str):
     return counts, seen
 
 
+@contextlib.contextmanager
+def environ(**values: str):
+    """Set environment values while the block runs; restore them after."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def cross_mode_phase(pipe, dataset, card: str) -> None:
+    """The decode stage of the int8 + bucket pipeline on one batch under the
+    ``mxu`` step (plain PyTorch on the int8 codes) and under the
+    cross-attention kernel (``pallas``), alternately: mxu, pallas, pallas,
+    mxu, twice. Seconds per batch for each."""
+    batch = [dataset[i] for i in range(BATCH)]
+    secs = {"mxu": [], "pallas": []}
+    texts = {}
+    for mode in ("mxu", "pallas", "pallas", "mxu") * 2:
+        before = pipe.stage_seconds["decode"]
+        with environ(WCA_CROSS_ATTN=mode):
+            texts[mode] = pipe.transcribe_batch(batch)[0]
+        secs[mode].append(pipe.stage_seconds["decode"] - before)
+    same = sum(a == b for a, b in zip(texts["mxu"], texts["pallas"]))
+    mean = {k: sum(v) / len(v) for k, v in secs.items()}
+    log(f"[cross mode] int8 + bucket decode stage on {card}, s per batch: "
+        f"mxu {[round(x, 4) for x in secs['mxu']]} (mean {mean['mxu']:.4f}),"
+        f" kernel {[round(x, 4) for x in secs['pallas']]} (mean "
+        f"{mean['pallas']:.4f}); kernel/mxu {mean['pallas'] / mean['mxu']:.3f};"
+        f" {same} of {BATCH} transcripts equal across the two")
+
+
 def guarded_phase(model, tok, dataset, card: str) -> None:
-    """One batch with both margin guards (int8 K/V and a 128-frame bucket):
-    launch counts exact, margins tracked, and every row the guard flags
-    carries the tokens of the exact (full-window, unquantized) decode."""
+    """One batch with both margin guards (int8 K/V and a 128-frame bucket),
+    set between the batch's own margins so that some rows are flagged and
+    some are not. A first pass of the same pipeline with both guards at 0
+    (nothing flagged) gives the int8 + bucket tokens and their margins; the
+    exact (full-window, unquantized) decode of the same encoder states gives
+    the exact tokens. In the guarded run the launch counts must be exact and
+    the pipeline's own decode must give each row it flags the exact tokens
+    and each other row the int8 + bucket tokens."""
     import numpy as np
 
-    from whisper_char_alignment_tpu_torch import constants
     from whisper_char_alignment_tpu_torch.config import AlignConfig
     from whisper_char_alignment_tpu_torch.models import decoding
     from whisper_char_alignment_tpu_torch.ops import _lib
@@ -589,11 +683,33 @@ def guarded_phase(model, tok, dataset, card: str) -> None:
     pipe.options = decoding.DecodingOptions(language="en",
                                             sample_len=DECODE_LEN)
     batch = [dataset[i] for i in range(BATCH)]
+
+    probe = new_seen()
+    with environ(WCA_KV_INT8_GUARD_MARGIN="0", WCA_BUCKET_GUARD_MARGIN="0"), \
+            spying(probe):
+        _, mel, xa = pipe.transcribe_batch(batch)
+    check(probe["int8_steps"] > 0 and probe["float_steps"] == 0,
+          "[guarded] the guard-0 pass did not take int8 steps alone")
+    perturbed = probe["results"][0][:BATCH]
+    exact = decoding.decode(pipe.model, tok, mel, pipe.options, xa=xa,
+                            device=pipe.device.type)
+    margins = np.unique([r.min_margin for r in perturbed])
+    check(len(margins) >= 2 and bool(np.isfinite(margins).all()),
+          f"[guarded] margins {margins} cannot be split")
+    mid = len(margins) // 2
+    guard = float(margins[mid - 1] + margins[mid]) / 2
+    # each guard half the total: the decode flags rows below their sum
+    half = repr(guard / 2)
+
     seen = new_seen()
-    _lib.reset_launches()
-    with spying(seen):
-        results = pipe.align_batch(batch)
-    counts = _lib.launch_counts()
+    with environ(WCA_KV_INT8_GUARD_MARGIN=half, WCA_BUCKET_GUARD_MARGIN=half):
+        check(pipe.active_guard_margin() == guard,
+              f"[guarded] active guard {pipe.active_guard_margin()} != {guard}")
+        _lib.reset_launches()
+        with spying(seen):
+            results = pipe.align_batch(batch)
+        counts = _lib.launch_counts()
+        flag_rate = pipe.flag_rate()
     expect = dict.fromkeys(counts, 0)
     layers = model.dims.n_text_layer
     expect.update(encoder_attn=model.dims.n_audio_layer, qkpost=layers,
@@ -603,30 +719,27 @@ def guarded_phase(model, tok, dataset, card: str) -> None:
         f"steps int8 {seen['int8_steps']}, exact re-decode "
         f"{seen['float_steps']}")
     check(counts == expect, "[guarded] launch counts differ from the path's")
-    check(seen["int8_steps"] > 0, "[guarded] no int8 decode step ran")
     check_alignments(results, dataset, BATCH)
-    guard = pipe.active_guard_margin()
+    own = seen["results"][0][:BATCH]
     check(len(pipe.min_margins) == BATCH
           and bool(np.isfinite(pipe.min_margins).all()),
           f"[guarded] margins not tracked: {pipe.min_margins}")
-
-    _, mel, xa = pipe.transcribe_batch(batch)
-    kv_frames = min(model.dims.n_audio_ctx, -(-max(
-        max(u.duration // constants.AUDIO_SAMPLES_PER_TOKEN, 1)
-        for u in batch) // 128) * 128)
-    exact = decoding.decode(pipe.model, tok, mel, pipe.options, xa=xa)
-    guarded = decoding.decode(
-        pipe.model, tok, mel, pipe.options, xa=xa, kv_frames=kv_frames,
-        kv_int8_guard=decoding.default_guard_margin(),
-        kv_frames_guard=decoding.default_bucket_guard_margin())
-    flagged = [i for i, r in enumerate(guarded) if r.min_margin < guard]
-    for i in flagged:
-        check(guarded[i].tokens == exact[i].tokens,
-              f"[guarded] flagged row {i} differs from the exact decode")
-    log(f"[guarded] on {card}: guard {guard}, kv_frames {kv_frames}, flag "
-        f"rate {pipe.flag_rate()}, min margins "
-        f"{[round(m, 4) for m in pipe.min_margins]}; {len(flagged)} of "
-        f"{BATCH} rows flagged, each with the exact decode's tokens")
+    flagged = [m < guard for m in pipe.min_margins]
+    check(0 < sum(flagged) < BATCH,
+          f"[guarded] {sum(flagged)} of {BATCH} rows flagged at guard {guard}")
+    check(seen["float_steps"] > 0, "[guarded] flagged rows were not re-decoded")
+    for i, flag in enumerate(flagged):
+        want = exact[i] if flag else perturbed[i]
+        check(own[i].tokens == want.tokens,
+              f"[guarded] row {i} ({'flagged' if flag else 'kept'}) differs "
+              f"from the {'exact' if flag else 'int8 + bucket'} decode")
+    differ = sum(e.tokens != p.tokens for e, p in zip(exact, perturbed))
+    log(f"[guarded] on {card}: guard {guard:.6g} (half from each), flag rate "
+        f"{flag_rate}, min margins {[round(m, 4) for m in pipe.min_margins]}"
+        f" (guard-0 pass: {[round(r.min_margin, 4) for r in perturbed]}); "
+        f"{sum(flagged)} of {BATCH} rows flagged, each with the exact "
+        f"decode's tokens, the others with the int8 + bucket decode's; the "
+        f"two decodes differ in {differ} rows")
 
 
 def main_path_phase(card: str):
@@ -685,31 +798,23 @@ def main_path_phase(card: str):
         check(seen["int8_steps"] == 0 and seen["reused"] == n_batches,
               "[default] the capture pass did not reuse the decode K/V")
 
-        env = {"WCA_CROSS_ATTN": "pallas", "WCA_MEL_IMPL": "pallas"}
-        saved = {k: os.environ.get(k) for k in env}
-        os.environ.update(env)
-        try:
+        with environ(WCA_CROSS_ATTN="pallas", WCA_MEL_IMPL="pallas"):
             quant = expected(
                 mel=lambda seen: n_batches,
                 cross_attn_int8=lambda seen: dims.n_text_layer
                 * seen["int8_steps"])
-            counts2, seen2 = drive(
-                "int8+bucket", pipeline(decode_kv_int8=True,
-                                        decode_frame_bucket=128),
-                dataset, quant, card)
+            quant_pipe = pipeline(decode_kv_int8=True,
+                                  decode_frame_bucket=128)
+            counts2, seen2 = drive("int8+bucket", quant_pipe, dataset, quant,
+                                   card)
             check(seen2["int8_steps"] > 0 and seen2["float_steps"] == 0
                   and all(f % 128 == 0 and f < dims.n_audio_ctx
                           for f in seen2["frames"]),
                   "[int8+bucket] the decode did not take bucketed int8 K/V")
             check(seen2["reused"] == 0 and seen2["captures"] == n_batches,
                   "[int8+bucket] the capture pass reused int8/bucketed K/V")
+            cross_mode_phase(quant_pipe, dataset, card)
             guarded_phase(model, tok, dataset, card)
-        finally:
-            for k, v in saved.items():
-                if v is None:
-                    os.environ.pop(k, None)
-                else:
-                    os.environ[k] = v
     return counts, counts2
 
 
@@ -759,9 +864,12 @@ def main() -> int:
         run = counts2 if name.startswith(("mel", "cross_attn")) else counts
         row["launches"] = run["dtw_trace" if name == "dtw_trace_batch"
                               else name]
+    # ms_method: "trace" (the kernel's traced device time) or "events" (the
+    # whole call by CUDA events, where three traces held no record of it)
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
-    print(json.dumps({"kernels": [{k: r[k] for k in keys}
+            "ms", "ms_method", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_ms_method"]
+    print(json.dumps({"kernels": [{k: r.get(k) for k in keys}
                                   for r in rows.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

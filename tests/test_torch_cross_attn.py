@@ -90,7 +90,7 @@ def test_cross_attention_rejects_bad_inputs(bad):
 
 
 @pytest.mark.parametrize("value,cpu,cuda", [
-    (None, "xla", "mxu"), ("auto", "xla", "mxu"), ("mxu", "mxu", "mxu"),
+    (None, "xla", "kernel"), ("auto", "xla", "kernel"), ("mxu", "mxu", "mxu"),
     ("int8mxu", "mxu", "mxu"), ("pallas", "kernel", "kernel"),
     ("1", "kernel", "kernel"), ("on", "kernel", "kernel"),
     ("true", "kernel", "kernel"), ("xla", "xla", "xla"),
