@@ -10,16 +10,19 @@ Phases (any failure exits non-zero and prints no final line):
    time.
 2. Kernel vs plain version on the card at the main path's shapes: encoder
    attention (B=8, H=16, T=1500, hd=64) in f32 and bf16, with K as it is and
-   K transposed; the QK post-process (B=8, H=16, T=96, F=1500) at widths 3
-   and 7 with ragged and edge lengths; the DTW wavefront and backtrace
-   (B=16, N<=120, M=1500) on tied integer and random costs (bit-equal); the
-   decode cross-attention (B=8, H=16, hd=64) over int8 and bf16 K/V at
-   F=1500 and at the bucket F=384; the mel frontend (B=8, 30 s) at 80 and
-   128 mels. Each kernel is timed from a ``torch.profiler`` trace (its own
-   device time, mean over 20 launches after warmup) beside its plain
-   version (CUDA events), its bound, and, where one PyTorch call computes
-   the same function, that call; the plain int8 step of the ``mxu`` mode is
-   timed beside the cross-attention kernel.
+   K transposed, at n_valid 1, 63, 64, 65, 1000 and 1500, at head dims 16,
+   32 and 128 on a small B*H, and timed at T=1536 (aligned K^T rows); the QK post-process (B=8, H=16, T=96,
+   F=1500) at widths 3 and 7 with ragged and edge lengths; the DTW
+   wavefront and backtrace (B=16, N<=120, M=1500) on tied integer and
+   random costs (bit-equal); the decode cross-attention (B=8, H=16, hd=64)
+   over int8 and bf16 K/V at F=1500, at the bucket F=384, and at F=1536,
+   131 and 1; the mel frontend (B=8, 30 s) at 80 and 128 mels. Each kernel is timed
+   from a ``torch.profiler`` trace (its own device time, mean over 20
+   launches after warmup) beside its plain version (CUDA events), its bound,
+   and, where one PyTorch call computes the same function, that call; the
+   cross-attention and its SDPA yardstick read inputs rotated over 100 MB
+   of copies, so from HBM, with the L2-warm time beside; the plain int8
+   step of the ``mxu`` mode is timed beside the cross-attention kernel.
 3. The port's main path, ``AlignmentPipeline.run_dataset`` at Whisper-medium
    width (random weights from torch.Generator seed 0, bf16, toy tokenizer,
    16 synthetic utterances of 2-7 s), twice: as configured by default, and
@@ -59,6 +62,30 @@ HBM_BYTES_PER_S = 3.35e12
 N_UTTS = 16
 BATCH = 8
 DECODE_LEN = 32
+
+# n_valid values the encoder kernels are held at, T=1500: the ragged tails
+# of their 64-key tiles down to a single valid key
+ENCODER_N_VALID = (1, 63, 64, 65, 1000, 1500)
+# frame counts the cross-attention kernel is held at: the full window, the
+# bucket, an aligned neighbour of the window, an odd count (rows misaligned
+# for every copy width), one frame
+CROSS_FRAMES = (1500, 384, 1536, 131, 1)
+# of them, those timed: the window, the bucket, and F=1536, whose rows are
+# 16-byte aligned where F=1500's are not
+CROSS_TIMED = (1500, 384, 1536)
+# a timed call reads inputs rotated over this many bytes of distinct copies,
+# twice the 50 MB L2, so that each launch reads them from HBM
+ROTATE_BYTES = 100e6
+
+# PR 2's traced times of the kernels redesigned since (chip run 5 of PR 2,
+# NVIDIA H100 80GB HBM3, 700 W), keyed by (row, dtype or frames); the
+# cross-attention ones read L2-warm inputs
+PREV_MS = {("encoder_attn", "bfloat16"): 3.1518,
+           ("encoder_attn", "float32"): 3.1575,
+           ("encoder_attn_kt", "bfloat16"): 3.4222,
+           ("encoder_attn_kt", "float32"): 3.4644,
+           ("cross_attn_int8", 384): 0.0096, ("cross_attn_int8", 1500): 0.0243,
+           ("cross_attn", 384): 0.0088, ("cross_attn", 1500): 0.0484}
 
 
 def log(msg: str) -> None:
@@ -158,11 +185,6 @@ def kernel_phase():
     rows = {}
 
     # -- encoder attention ---------------------------------------------------
-    b, h, t, hd = 8, 16, 1500, 64
-    scale = hd ** -0.25
-    q32, k32, v32 = (torch.randn((b, h, t, hd), generator=gen, device=dev)
-                     for _ in range(3))
-    q32, k32 = q32 * scale, k32 * scale
     variants = (  # (row, wrapper, plain version, TPU kernel it replaces)
         ("encoder_attn", encoder_attn_cuda.encoder_self_attention,
          encoder_attn_cuda.encoder_self_attention_plain,
@@ -170,7 +192,40 @@ def kernel_phase():
         ("encoder_attn_kt", encoder_attn_cuda.encoder_self_attention_kt,
          encoder_attn_cuda.encoder_self_attention_kt_plain,
          "whisper_char_alignment_tpu/ops/encoder_attn_pallas.py:74"))
-    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+    tols = ((torch.float32, 2e-5), (torch.bfloat16, 2e-2))
+
+    def encoder_inputs(shape):
+        scale = shape[-1] ** -0.25
+        q, k, v = (torch.randn(shape, generator=gen, device=dev)
+                   for _ in range(3))
+        return q * scale, k * scale, v
+
+    def hold_encoder(name, fn, plain, args, n_valid, dtype, tol) -> float:
+        out = fn(*args, n_valid)
+        ref = plain(*args, n_valid)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs()
+        lim = tol + (tol * ref.float().abs()
+                     if dtype == torch.bfloat16 else 0.0)
+        check(bool((err <= lim).all()),
+              f"{name} {dtype} {tuple(args[0].shape)} n_valid={n_valid}: max "
+              f"err {err.max().item():.3g}")
+        return err.max().item()
+
+    # edges at a small B*H: the other head dims
+    for hd in (16, 32, 128):
+        args32 = encoder_inputs((1, 4, 1500, hd))
+        for dtype, tol in tols:
+            args = [x.to(dtype).contiguous() for x in args32]
+            for name, fn, plain, _ in variants:
+                errs = [hold_encoder(name, fn, plain, args, n_valid, dtype,
+                                     tol) for n_valid in (1000, 1500)]
+                log(f"{name} {str(dtype)[6:]} (1,4,1500,{hd}) n_valid=1000, "
+                    f"1500: max abs err {max(errs):.3g} (tol {tol})")
+
+    b, h, t, hd = 8, 16, 1500, 64
+    q32, k32, v32 = encoder_inputs((b, h, t, hd))
+    for dtype, tol in tols:
         q, k, v = (x.to(dtype).contiguous() for x in (q32, k32, v32))
         ops = 4 * b * h * t * t * hd
         nbytes = 4 * b * h * t * hd * q.element_size()
@@ -179,28 +234,24 @@ def kernel_phase():
         sdpa_ms, sdpa_method = library_ms(
             lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0), bound)
         for name, fn, plain, replaces in variants:
+            # ragged tails of the 64-key tiles, down to one valid key
             worst = 0.0
-            for n_valid in (t, 1000):
-                out = fn(q, k, v, n_valid)
-                ref = plain(q, k, v, n_valid)
-                torch.cuda.synchronize()
-                err = (out.float() - ref.float()).abs()
-                lim = tol + (tol * ref.float().abs()
-                             if dtype == torch.bfloat16 else 0.0)
-                check(bool((err <= lim).all()),
-                      f"{name} {dtype} n_valid={n_valid}: max err "
-                      f"{err.max().item():.3g}")
-                worst = max(worst, err.max().item())
+            for n_valid in ENCODER_N_VALID:
+                err = hold_encoder(name, fn, plain, (q, k, v), n_valid, dtype,
+                                   tol)
+                worst = max(worst, err)
                 log(f"{name} {str(dtype)[6:]} n_valid={n_valid}: max abs "
-                    f"err {err.max().item():.3g} (tol {tol})")
+                    f"err {err:.3g} (tol {tol})")
             ms, method = kernel_ms(lambda: fn(q, k, v, t),
                                    "encoder_attn_kernel", bound)
             call_ms = cuda_ms(lambda: fn(q, k, v, t))
             plain_ms = cuda_ms(lambda: plain(q, k, v, t), iters=3, warmup=1)
+            prev = PREV_MS[name, str(dtype)[6:]]
             log(f"{name} {str(dtype)[6:]} (8,16,1500,64): kernel {ms:.4f} ms"
-                f" ({method}; whole call {call_ms:.4f} ms), plain "
-                f"{plain_ms:.4f} ms, sdpa {sdpa_ms:.4f} ms ({sdpa_method}), "
-                f"bound {bound:.4f} ms ({ops / 1e9:.1f} GFLOP)")
+                f" ({method}; whole call {call_ms:.4f} ms; PR 2 {prev} ms), "
+                f"plain {plain_ms:.4f} ms, sdpa {sdpa_ms:.4f} ms "
+                f"({sdpa_method}), bound {bound:.4f} ms ({ops / 1e9:.1f} "
+                f"GFLOP, {ops / ms / 1e9:.1f} TFLOP/s)")
             if dtype == torch.bfloat16:
                 rows[name] = dict(
                     name=name, route="cuda",
@@ -209,8 +260,16 @@ def kernel_phase():
                     ms_method=method, plain_ms=plain_ms, bound_ms=bound,
                     bound_by="operations"
                     if ops / peak > nbytes / HBM_BYTES_PER_S else "bytes",
-                    library_ms=sdpa_ms, library_ms_method=sdpa_method)
-    del q32, k32, v32, q, k, v
+                    library_ms=sdpa_ms, library_ms_method=sdpa_method,
+                    prev_ms=prev, redesigned_pr=3)
+    # T=1536: K^T rows 16-byte aligned (at T=1500 every other one is 8 bytes
+    # off, and the kKT tile copies are 8 bytes wide)
+    args = [x.to(torch.bfloat16) for x in encoder_inputs((b, h, 1536, hd))]
+    aligned = {name: device_ms(lambda: fn(*args, 1536), "encoder_attn_kernel")
+               for name, fn, _, _ in variants}
+    log(f"encoder attention bf16 (8,16,1536,64), K^T rows aligned: "
+        f"traced ms {aligned}")
+    del q32, k32, v32, q, k, v, args
 
     # -- QK post-process -----------------------------------------------------
     b, h, t, f = 8, 16, 96, 1500
@@ -320,9 +379,25 @@ def kernel_phase():
     return rows
 
 
+def rotated(fn, args, nbytes: int):
+    """A call of ``fn`` on distinct copies of ``args`` in turn, enough of
+    them (``ROTATE_BYTES`` in all) that no launch finds its inputs in the
+    50 MB L2, and the number of copies."""
+    import itertools
+    import math
+
+    n = max(2, math.ceil(ROTATE_BYTES / nbytes))
+    copies = itertools.cycle([args] + [tuple(a.clone() for a in args)
+                                       for _ in range(n - 1)])
+    return lambda: fn(*next(copies)), n
+
+
 def cross_attn_rows(gen):
     """The decode cross-attention kernel over int8 and bf16 K/V at the full
-    window (F=1500) and at the bucket the second main path takes (F=384)."""
+    window (F=1500), at the bucket the second main path takes (F=384) and at
+    the other ``CROSS_FRAMES``, against the plain version; those of
+    ``CROSS_TIMED`` timed with inputs rotated out of L2 (``rotated``),
+    beside the L2-warm time PR 2 took."""
     import torch
     import torch.nn.functional as F
 
@@ -333,7 +408,7 @@ def cross_attn_rows(gen):
     b, h, hd = 8, 16, 64
     k_scale = hd ** -0.25
     rows = {}
-    for f in (1500, 384):
+    for f in CROSS_FRAMES:
         q = (torch.randn((b, h, 1, hd), generator=gen, device=dev)
              * k_scale).to(torch.bfloat16)
         kf, vf = (torch.randn((b, h, hd, f), generator=gen, device=dev)
@@ -341,43 +416,54 @@ def cross_attn_rows(gen):
         (k8, k_s), (v8, v_s) = (wm.quantize_cross_kv(kf),
                                 wm.quantize_cross_kv(vf))
         kb, vb = kf.to(torch.bfloat16), vf.to(torch.bfloat16)
-        int8_args = (q, k8, k_s, v8, v_s)
         cases = (("cross_attn_int8", ca.cross_attn_step_int8,
-                  ca.cross_attn_step_int8_plain, int8_args,
+                  ca.cross_attn_step_int8_plain, (q, k8, k_s, v8, v_s),
                   "whisper_char_alignment_tpu/ops/cross_attn_pallas.py:63"),
                  ("cross_attn", ca.cross_attn_step, ca.cross_attn_step_plain,
                   (q, kb, vb),
                   "whisper_char_alignment_tpu/ops/cross_attn_pallas.py:94"))
         for name, fn, plain, args, replaces in cases:
-            out = fn(*args, k_scale=k_scale)
+            step = lambda *a: fn(*a, k_scale=k_scale)  # noqa: E731
+            out = step(*args)
             ref = plain(*args, k_scale=k_scale)
             torch.cuda.synchronize()
             err = (out - ref).abs()
             check(bool((err <= 2e-5 + 2e-5 * ref.abs()).all()),
                   f"{name} F={f}: max err {err.max().item():.3g}")
-            kv_bytes = sum(x.numel() * x.element_size() for x in args[1:])
-            nbytes = kv_bytes + q.numel() * q.element_size() + out.numel() * 4
+            if f not in CROSS_TIMED:  # an edge: held, not timed
+                log(f"{name} (8,16,64,{f}): max abs err "
+                    f"{err.max().item():.3g} (tol 2e-5 + 2e-5 rel)")
+                continue
+            in_bytes = sum(x.numel() * x.element_size() for x in args)
+            nbytes = in_bytes + out.numel() * 4
             ops = 4 * b * h * hd * f + 8 * b * h * f  # two products, softmax
             bound = max(nbytes / HBM_BYTES_PER_S, ops / PEAK_F32) * 1e3
-            ms, method = kernel_ms(lambda: fn(*args, k_scale=k_scale),
-                                   "cross_attn_kernel", bound)
-            call_ms = cuda_ms(lambda: fn(*args, k_scale=k_scale))
+            cold, n_copies = rotated(step, args, in_bytes)
+            ms, method = kernel_ms(cold, "cross_attn_kernel", bound)
+            # PR 2's method, the same inputs on every launch (L2-warm): no
+            # bound check, since L2 may serve faster than HBM
+            warm = device_ms(lambda: step(*args), "cross_attn_kernel")
+            call_ms = cuda_ms(cold)
             plain_ms = cuda_ms(lambda: plain(*args, k_scale=k_scale))
             lib_ms = lib_method = None
             if name == "cross_attn":  # SDPA on K/V laid out (B, H, F, hd)
                 kt, vt = (x.transpose(-1, -2).contiguous() for x in (kb, vb))
-                lib_ms, lib_method = library_ms(
-                    lambda: F.scaled_dot_product_attention(
-                        q, kt, vt, scale=k_scale), bound)
+                sdpa, _ = rotated(
+                    lambda q_, k_, v_: F.scaled_dot_product_attention(
+                        q_, k_, v_, scale=k_scale), (q, kt, vt), in_bytes)
+                lib_ms, lib_method = library_ms(sdpa, bound)
+            prev = PREV_MS.get((name, f))
             log(f"{name} (8,16,64,{f}): max abs err {err.max().item():.3g} "
-                f"(tol 2e-5 + 2e-5 rel); kernel {ms:.4f} ms ({method}; "
-                f"whole call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, "
-                f"bound {bound:.5f} ms ({nbytes / 1e6:.1f} MB)"
-                + (f", sdpa {lib_ms:.4f} ms ({lib_method})" if lib_ms
-                   else ""))
+                f"(tol 2e-5 + 2e-5 rel); kernel {ms:.4f} ms ({method}, "
+                f"inputs rotated over {n_copies} copies; L2-warm {warm} ms; "
+                f"PR 2 L2-warm {prev} ms; whole call {call_ms:.4f} ms), "
+                f"plain {plain_ms:.4f} ms, bound {bound:.5f} ms "
+                f"({nbytes / 1e6:.1f} MB, {nbytes / ms / 1e6:.0f} GB/s)"
+                + (f", sdpa {lib_ms:.4f} ms ({lib_method}, rotated)"
+                   if lib_ms else ""))
             # the int8 row at the bucket the main path takes, the bf16 row
             # (off every path) at the full window
-            if (name == "cross_attn_int8") == (f == 384):
+            if (name, f) in (("cross_attn_int8", 384), ("cross_attn", 1500)):
                 rows[name] = dict(
                     name=name, route="cuda",
                     source="whisper_char_alignment_tpu_torch/csrc/cross_attn.cu",
@@ -385,7 +471,10 @@ def cross_attn_rows(gen):
                     ms_method=method, plain_ms=plain_ms, bound_ms=bound,
                     bound_by="bytes" if nbytes / HBM_BYTES_PER_S
                     >= ops / PEAK_F32 else "operations",
-                    library_ms=lib_ms, library_ms_method=lib_method)
+                    library_ms=lib_ms, library_ms_method=lib_method,
+                    prev_ms=prev, redesigned_pr=3)
+        if f not in (384, 1500):
+            continue
         # the int8 step the mxu mode takes instead of the kernel (plain
         # PyTorch on the int8 codes), as the decode loop calls it
         mxu = lambda: wm._cross_attn_step_int8_mxu(  # noqa: E731
@@ -852,7 +941,8 @@ def main() -> int:
     log(f"kernel library built in {time.perf_counter() - t0:.1f} s "
         f"({_lib.build_info.get('path')})")
     for line in str(_lib.build_info.get("log", "")).splitlines():
-        if "registers" in line or "==" in line or "spill" in line:
+        if any(w in line for w in ("registers", "==", "spill",
+                                   "Function properties")):
             log(f"  {line.strip()}")
 
     rows = kernel_phase()
@@ -866,9 +956,11 @@ def main() -> int:
                               else name]
     # ms_method: "trace" (the kernel's traced device time) or "events" (the
     # whole call by CUDA events, where three traces held no record of it)
+    # prev_ms, redesigned_pr: PR 2's time of a kernel redesigned since, and
+    # the PR that redesigned it (null for the others)
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "ms_method", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "library_ms_method"]
+            "library_ms", "library_ms_method", "prev_ms", "redesigned_pr"]
     print(json.dumps({"kernels": [{k: r.get(k) for k in keys}
                                   for r in rows.values()]}))
     print(json.dumps({"ok": True, "device": {

@@ -138,3 +138,16 @@ def test_encoder_attention_kt_rejects_bad_inputs(bad):
     with pytest.raises(ValueError):
         encoder_attn_cuda.encoder_self_attention_kt(
             q, k, q.clone(), 0 if bad == "n_valid" else 8)
+
+
+@pytest.mark.parametrize("offset,aligned", [(0, True), (4, True), (1, False),
+                                            (2, False)])
+def test_require_aligned(offset, aligned):
+    """The wrappers refuse data off a 16-byte boundary: the kernels copy
+    their K/V panels 16 bytes at a time."""
+    t = torch.zeros(64)[offset:offset + 16]  # float32: 4 bytes per offset
+    if aligned:
+        _lib.require_aligned("x", t)
+    else:
+        with pytest.raises(ValueError, match="16-byte"):
+            _lib.require_aligned("x", t)

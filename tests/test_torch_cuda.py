@@ -25,34 +25,56 @@ def cuda():
     return resolve_device("cuda")
 
 
+# (T, n_valid): ragged tails of the 64-key tiles at Whisper's T=1500, a
+# short T whose K^T rows are only 4-byte aligned, and every head dim
+_ENCODER_CASES = [(150, 130, hd) for hd in (16, 32, 64, 128)] + [
+    (1500, n, 64) for n in (1, 63, 64, 65, 1000, 1500)] + [
+    (1500, 1000, hd) for hd in (16, 32, 128)]
+
+
+def _encoder_inputs(cuda, dtype, t, hd, seed):
+    rng = np.random.default_rng(seed)
+    scale = hd ** -0.25
+    return [torch.from_numpy(rng.normal(size=(1, 3, t, hd)).astype(
+        np.float32) * (scale if i < 2 else 1.0)).to(cuda, dtype)
+        for i in range(3)]
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("hd", [16, 64])
-def test_encoder_attention_kernel(cuda, dtype, tol, hd):
-    rng = np.random.default_rng(hd)
-    q, k, v = (torch.from_numpy(rng.normal(size=(2, 3, 150, hd)).astype(
-        np.float32)).to(cuda, dtype) for _ in range(3))
+@pytest.mark.parametrize("t,n_valid,hd", _ENCODER_CASES)
+def test_encoder_attention_kernel(cuda, dtype, tol, t, n_valid, hd):
+    q, k, v = _encoder_inputs(cuda, dtype, t, hd, hd + n_valid)
     before = _lib.launch_counts()["encoder_attn"]
-    got = encoder_attn_cuda.encoder_self_attention(q, k, v, 130)
+    got = encoder_attn_cuda.encoder_self_attention(q, k, v, n_valid)
     assert _lib.launch_counts()["encoder_attn"] == before + 1
-    want = encoder_attn_cuda.encoder_self_attention_plain(q, k, v, 130)
+    want = encoder_attn_cuda.encoder_self_attention_plain(q, k, v, n_valid)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 2e-2)])
-def test_encoder_attention_kt_kernel(cuda, dtype, tol):
-    rng = np.random.default_rng(7)
-    q, k, v = (torch.from_numpy(rng.normal(size=(2, 3, 150, 64)).astype(
-        np.float32)).to(cuda, dtype) for _ in range(3))
+@pytest.mark.parametrize("t,n_valid,hd", _ENCODER_CASES + [(151, 77, 64)])
+def test_encoder_attention_kt_kernel(cuda, dtype, tol, t, n_valid, hd):
+    """As above with K transposed; T=151 leaves K^T rows 2-byte aligned, so
+    its tile loads take one element per copy."""
+    q, k, v = _encoder_inputs(cuda, dtype, t, hd, 7 + hd + n_valid)
     before = _lib.launch_counts()["encoder_attn_kt"]
-    got = encoder_attn_cuda.encoder_self_attention_kt(q, k, v, 130)
+    got = encoder_attn_cuda.encoder_self_attention_kt(q, k, v, n_valid)
     assert _lib.launch_counts()["encoder_attn_kt"] == before + 1
-    want = encoder_attn_cuda.encoder_self_attention_kt_plain(q, k, v, 130)
+    want = encoder_attn_cuda.encoder_self_attention_kt_plain(q, k, v, n_valid)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("frames", [1, 131, 384])
+def test_encoder_attention_refuses_misaligned_inputs(cuda):
+    q, k, v = _encoder_inputs(cuda, torch.bfloat16, 64, 64, 0)
+    buf = torch.empty(k.numel() + 1, dtype=k.dtype, device=cuda)
+    k = buf[1:].view_as(k).copy_(k)  # contiguous, 2 bytes past a boundary
+    with pytest.raises(ValueError, match="boundary"):
+        encoder_attn_cuda.encoder_self_attention(q, k, v, 64)
+
+
+@pytest.mark.parametrize("frames", [1, 17, 131, 384, 1500])
 def test_cross_attention_int8_kernel(cuda, frames):
     rng = np.random.default_rng(frames)
     q = torch.from_numpy(rng.normal(size=(2, 3, 1, 64)).astype(
@@ -105,12 +127,17 @@ def test_int8_decode_step_on_the_card_matches_the_cpu(cuda, mode, tol):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cross_attention_float_kernel(cuda, dtype):
-    rng = np.random.default_rng(3)
+@pytest.mark.parametrize("frames", [1, 131, 300, 384, 1500, 2100])
+def test_cross_attention_float_kernel(cuda, dtype, frames):
+    """F=2100 gives bf16 blocks more frames than they stage at once, so
+    they walk their chunk in tiles."""
+    rng = np.random.default_rng(frames)
     q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(
         np.float32)).to(cuda, dtype) for shape in
-        ((4, 2, 1, 64), (4, 2, 64, 300), (4, 2, 64, 300)))
+        ((4, 2, 1, 64), (4, 2, 64, frames), (4, 2, 64, frames)))
+    before = _lib.launch_counts()["cross_attn"]
     got = cross_attn_cuda.cross_attn_step(q, k, v, k_scale=0.35)
+    assert _lib.launch_counts()["cross_attn"] == before + 1
     want = cross_attn_cuda.cross_attn_step_plain(q, k, v, k_scale=0.35)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
 

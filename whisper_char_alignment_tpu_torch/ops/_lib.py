@@ -181,6 +181,17 @@ def check(rc: int, name: str) -> None:
             f"CUDA kernel {name} failed to launch: error {rc} ({msg})")
 
 
+def require_aligned(name: str, *tensors: torch.Tensor,
+                    to: int = 16) -> None:
+    """Raise unless every tensor's data starts on a ``to``-byte boundary:
+    the kernels copy them with 16-byte vector loads."""
+    for t in tensors:
+        if t.data_ptr() % to:
+            raise ValueError(f"{name}: a {tuple(t.shape)} input starts at "
+                             f"{t.data_ptr():#x}, not on a {to}-byte "
+                             "boundary")
+
+
 def require_cuda_or_cpu(*tensors: torch.Tensor) -> str:
     """Device type shared by ``tensors``: 'cpu' selects the plain version,
     'cuda' the kernel; anything else, or a mix, raises."""

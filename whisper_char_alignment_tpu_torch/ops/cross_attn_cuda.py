@@ -20,8 +20,9 @@ import torch
 
 from . import _lib
 
-# the kernel keeps the F scores in at most 48 KB of shared memory
-_MAX_FRAMES = 12_000
+# head dims the kernel is instantiated for; F is not limited (frames beyond
+# a shared-memory stage's width are walked in chunks)
+_HEAD_DIMS = (16, 32, 64, 128)
 
 
 def _plain(q, k, v, k_scale: float, k_s=None, v_s=None) -> torch.Tensor:
@@ -65,10 +66,11 @@ def _check(q, k, v, k_s: Optional[torch.Tensor],
                              f"{tuple(s.shape)}")
     kind = _lib.require_cuda_or_cpu(q, k, v, *scales)
     if kind == "cuda":
-        if f > _MAX_FRAMES:
-            raise ValueError(f"{f} frames exceed the kernel's {_MAX_FRAMES}")
+        if hd not in _HEAD_DIMS:
+            raise ValueError(f"head_dim {hd} not in {_HEAD_DIMS}")
         if not (k.is_contiguous() and v.is_contiguous()):
             raise ValueError("k and v must be contiguous")
+        _lib.require_aligned("cross_attn", k, v)
     return kind
 
 
@@ -76,7 +78,7 @@ def cross_attn_step_int8(q, k8, k_s, v8, v_s, *,
                          k_scale: float) -> torch.Tensor:
     """The step of :func:`cross_attn_step_int8_plain`: the CUDA kernel for
     CUDA tensors (int8 codes, float32 scales), the plain version for CPU
-    tensors. F may be any value up to 12,000."""
+    tensors."""
     if _check(q, k8, v8, k_s, v_s) == "cpu":
         return cross_attn_step_int8_plain(q, k8, k_s, v8, v_s,
                                           k_scale=k_scale)

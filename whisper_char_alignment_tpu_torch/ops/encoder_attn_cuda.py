@@ -58,6 +58,7 @@ def _check_inputs(q, k, v, n_valid) -> str:
 def _launch(name: str, q, k, v, n_valid: int) -> torch.Tensor:
     b, h, t, hd = q.shape
     o = torch.empty_like(q)
+    _lib.require_aligned(name, q, k, v, o)
     lib = _lib.library()
     _lib.count(name)
     rc = getattr(lib, "wca_" + name)(
