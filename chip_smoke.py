@@ -11,18 +11,19 @@ Phases (any failure exits non-zero and prints no final line):
 2. Kernel vs plain version on the card at the main path's shapes: encoder
    attention (B=8, H=16, T=1500, hd=64) in f32 and bf16, with K as it is and
    K transposed, at n_valid 1, 63, 64, 65, 1000 and 1500, at head dims 16,
-   32 and 128 on a small B*H, and timed at T=1536 (aligned K^T rows); the QK post-process (B=8, H=16, T=96,
-   F=1500) at widths 3 and 7 with ragged and edge lengths; the DTW
-   wavefront and backtrace (B=16, N<=120, M=1500) on tied integer and
-   random costs (bit-equal); the decode cross-attention (B=8, H=16, hd=64)
-   over int8 and bf16 K/V at F=1500, at the bucket F=384, and at F=1536,
-   131 and 1; the mel frontend (B=8, 30 s) at 80 and 128 mels. Each kernel is timed
-   from a ``torch.profiler`` trace (its own device time, mean over 20
-   launches after warmup) beside its plain version (CUDA events), its bound,
-   and, where one PyTorch call computes the same function, that call; the
-   cross-attention and its SDPA yardstick read inputs rotated over 100 MB
-   of copies, so from HBM, with the L2-warm time beside; the plain int8
-   step of the ``mxu`` mode is timed beside the cross-attention kernel.
+   32 and 128 on a small B*H, and timed at T=1536 (aligned K^T rows); the
+   QK post-process (B=8, H=16, T=96, F=1500) at widths 3 and 7 with ragged
+   and edge lengths; the DTW wavefront and backtrace (B=16, N<=120,
+   M=1500) on tied integer and random costs (bit-equal); the decode
+   cross-attention (B=8, H=16, hd=64) over int8 and bf16 K/V at F=1500, at
+   the bucket F=384, and at F=1536, 131 and 1; the mel frontend (B=8,
+   30 s) at 80 and 128 mels. Each kernel is timed from a ``torch.profiler``
+   trace (its own device time, mean over 20 launches after warmup) beside
+   its plain version (CUDA events), its bound, and, where one PyTorch call
+   computes the same function, that call; the cross-attention and its SDPA
+   yardstick read inputs rotated over 100 MB of copies, so from HBM, with
+   the L2-warm time beside; the plain int8 step of the ``mxu`` mode is
+   timed beside the cross-attention kernel.
 3. The port's main path, ``AlignmentPipeline.run_dataset`` at Whisper-medium
    width (random weights from torch.Generator seed 0, bf16, toy tokenizer,
    16 synthetic utterances of 2-7 s), twice: as configured by default, and
@@ -77,8 +78,8 @@ CROSS_TIMED = (1500, 384, 1536)
 # twice the 50 MB L2, so that each launch reads them from HBM
 ROTATE_BYTES = 100e6
 
-# PR 2's traced times of the kernels redesigned since (chip run 5 of PR 2,
-# NVIDIA H100 80GB HBM3, 700 W), keyed by (row, dtype or frames); the
+# The previous designs' traced times of the kernels redesigned since (NVIDIA
+# H100 80GB HBM3, 700 W), keyed by (row, dtype or frames); the
 # cross-attention ones read L2-warm inputs
 PREV_MS = {("encoder_attn", "bfloat16"): 3.1518,
            ("encoder_attn", "float32"): 3.1575,
@@ -248,7 +249,7 @@ def kernel_phase():
             plain_ms = cuda_ms(lambda: plain(q, k, v, t), iters=3, warmup=1)
             prev = PREV_MS[name, str(dtype)[6:]]
             log(f"{name} {str(dtype)[6:]} (8,16,1500,64): kernel {ms:.4f} ms"
-                f" ({method}; whole call {call_ms:.4f} ms; PR 2 {prev} ms), "
+                f" ({method}; whole call {call_ms:.4f} ms; before {prev} ms), "
                 f"plain {plain_ms:.4f} ms, sdpa {sdpa_ms:.4f} ms "
                 f"({sdpa_method}), bound {bound:.4f} ms ({ops / 1e9:.1f} "
                 f"GFLOP, {ops / ms / 1e9:.1f} TFLOP/s)")
@@ -397,7 +398,7 @@ def cross_attn_rows(gen):
     window (F=1500), at the bucket the second main path takes (F=384) and at
     the other ``CROSS_FRAMES``, against the plain version; those of
     ``CROSS_TIMED`` timed with inputs rotated out of L2 (``rotated``),
-    beside the L2-warm time PR 2 took."""
+    beside the L2-warm time the previous design was timed with."""
     import torch
     import torch.nn.functional as F
 
@@ -440,8 +441,8 @@ def cross_attn_rows(gen):
             bound = max(nbytes / HBM_BYTES_PER_S, ops / PEAK_F32) * 1e3
             cold, n_copies = rotated(step, args, in_bytes)
             ms, method = kernel_ms(cold, "cross_attn_kernel", bound)
-            # PR 2's method, the same inputs on every launch (L2-warm): no
-            # bound check, since L2 may serve faster than HBM
+            # the previous method, the same inputs on every launch
+            # (L2-warm): no bound check, since L2 may serve faster than HBM
             warm = device_ms(lambda: step(*args), "cross_attn_kernel")
             call_ms = cuda_ms(cold)
             plain_ms = cuda_ms(lambda: plain(*args, k_scale=k_scale))
@@ -456,7 +457,7 @@ def cross_attn_rows(gen):
             log(f"{name} (8,16,64,{f}): max abs err {err.max().item():.3g} "
                 f"(tol 2e-5 + 2e-5 rel); kernel {ms:.4f} ms ({method}, "
                 f"inputs rotated over {n_copies} copies; L2-warm {warm} ms; "
-                f"PR 2 L2-warm {prev} ms; whole call {call_ms:.4f} ms), "
+                f"before, L2-warm {prev} ms; whole call {call_ms:.4f} ms), "
                 f"plain {plain_ms:.4f} ms, bound {bound:.5f} ms "
                 f"({nbytes / 1e6:.1f} MB, {nbytes / ms / 1e6:.0f} GB/s)"
                 + (f", sdpa {lib_ms:.4f} ms ({lib_method}, rotated)"
@@ -956,8 +957,8 @@ def main() -> int:
                               else name]
     # ms_method: "trace" (the kernel's traced device time) or "events" (the
     # whole call by CUDA events, where three traces held no record of it)
-    # prev_ms, redesigned_pr: PR 2's time of a kernel redesigned since, and
-    # the PR that redesigned it (null for the others)
+    # prev_ms, redesigned_pr: a redesigned kernel's time before its
+    # redesign, and the change that redesigned it (null for the others)
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "ms_method", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_ms_method", "prev_ms", "redesigned_pr"]

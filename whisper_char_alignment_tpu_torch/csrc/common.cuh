@@ -77,8 +77,9 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Let kKernel take `smem` bytes of dynamic shared memory. The attribute is
-// set once per kernel and size in a process (a driver call costs host time
-// on every decode step otherwise); raced calls only set it twice.
+// set once per kernel and size in a process (cudaFuncSetAttribute would
+// cost host time on every decode step otherwise); raced calls only set it
+// twice.
 template <auto kKernel>
 cudaError_t allow_smem(size_t smem) {
   static std::atomic<size_t> allowed{0};

@@ -26,7 +26,7 @@
 //   wave, no cluster, nothing to fold across blocks) and streams its panels
 //   run by run, K rows then V rows, through a ring of 3 shared-memory
 //   stages. Each run is one bulk copy (cp.async.bulk, completing on the
-//   stage's mbarrier), issued by one thread: per-thread cp.async kept too
+//   stage's mbarrier), started by one thread: per-thread cp.async kept too
 //   few bytes in flight per SM. The first run also brings q and the scales.
 //   Runs are as long as fit 48 KB (the whole panel at F=384 in int8, 32
 //   rows at F=1500), so a short F takes few steps. Each thread keeps the
@@ -286,7 +286,7 @@ __global__ void __launch_bounds__(kThreads)
   // run c into its stage: `rows` rows of a panel's frames [f0, f0 + n), by
   // one bulk copy, or per thread with each row as the 16-byte aligned span
   // that holds it; the first run of a frame chunk also brings its scales
-  auto issue = [&](int c) {
+  auto fetch = [&](int c) {
     const int fc = c / (2 * kRuns), r = c % (2 * kRuns);
     const int f0 = fc * chunk, n = min(chunk, n_frames - f0);
     const unsigned char* src = r < kRuns ? kb : vb;
@@ -337,7 +337,7 @@ __global__ void __launch_bounds__(kThreads)
     wca::cp_async_commit();
   };
 
-  for (int c = 0; c < kStages && c < n_runs; ++c) issue(c);
+  for (int c = 0; c < kStages && c < n_runs; ++c) fetch(c);
   // q's (and, with bulk copies, the scales') loads wait while the copies are
   // in flight
   for (int d = tid; d < HD; d += kThreads) {
@@ -412,7 +412,7 @@ __global__ void __launch_bounds__(kThreads)
         pv_rows<T, 8>(os, alpha, run, ldr, d0, w, n, bulk, f_bytes, f0b);
     }
     __syncthreads();  // run c's stage (and, after a V run, w) is free
-    if (c + kStages < n_runs) issue(c + kStages);
+    if (c + kStages < n_runs) fetch(c + kStages);
   }
   for (int d = tid; d < HD; d += kThreads) o[bh * HD + d] = os[d] / l_run;
 }
