@@ -88,10 +88,11 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar) {
 }
 // Arrive on `bar` expecting `bytes` of bulk copies to land on it.
 __device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
 }
 // Copy `bytes` (a multiple of 16, both ends 16-byte aligned) from global to
 // shared memory with the bulk-copy engine, counted on `bar`.
@@ -250,7 +251,8 @@ __global__ void __launch_bounds__(kThreads)
                       int s_width) {
   constexpr int kElem = sizeof(T);
   const int kRuns = HD / rows;  // runs per panel
-  constexpr int kPerThread = max_chunk<T>() / kThreads;  // frames a thread scores
+  // frames a thread scores: tid, tid + kThreads, ...
+  constexpr int kPerThread = max_chunk<T>() / kThreads;
   const int n_chunks = (n_frames + chunk - 1) / chunk;
   const size_t f_bytes = (size_t)n_frames * kElem;  // one row of a panel
   // one frame chunk: a run of `rows` rows is one contiguous, 16-byte

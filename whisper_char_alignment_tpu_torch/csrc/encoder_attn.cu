@@ -2,9 +2,10 @@
 // cores for bfloat16 and a register-tiled one on the CUDA cores for float32.
 //
 // Replaces: whisper_char_alignment_tpu/ops/encoder_attn_pallas.py,
-//   encoder_self_attention (its _kernel) and, in the kKT instantiations,
-//   encoder_self_attention_kt (its _kernel_kt: K handed over transposed, as
-//   (bh, hd, t)). Same function: S = q k^T with q and k pre-scaled by
+//   encoder_self_attention (its _kernel) and, with K handed over transposed
+//   as (bh, hd, t) (the kKT layout: encoder_attn_kernel_bf16_kt and the f32
+//   kernel's kKT instantiations), encoder_self_attention_kt (its
+//   _kernel_kt). Same function: S = q k^T with q and k pre-scaled by
 //   head_dim^-0.25, columns >= n_valid set to -inf, an f32 softmax, the
 //   probabilities rounded to the compute dtype, then P v summed in f32.
 //
@@ -15,10 +16,11 @@
 //   (float32 stays real: no TF32).
 //
 // Design, bf16: FlashAttention-2 with mma.sync.m16n8k16 (bf16 in, f32
-//   accumulate). Each of a block's 8 warps owns 16 query rows and keeps them
-//   as A fragments (ldmatrix, once). 64-key K and V tiles are double-buffered in shared
-//   memory with cp.async (16-byte copies, zero-filled past n_valid; rows
-//   padded by 16 bytes so that ldmatrix is free of bank conflicts). Scores
+//   accumulate). Each of a block's 8 warps owns 16 query rows and keeps
+//   them as A fragments (ldmatrix, once). 64-key K and V tiles are
+//   double-buffered in shared memory with cp.async (16-byte copies,
+//   zero-filled past n_valid; rows padded by 16 bytes so that ldmatrix is
+//   free of bank conflicts). Scores
 //   stay in registers; the online softmax's row max and sum live on the
 //   accumulator fragments and reduce over the 4 lanes of a quad. P turns
 //   from the C layout into bf16 A fragments in registers: the row sum l
@@ -40,8 +42,9 @@
 //
 // K^T rows are t*2 bytes apart, so at t=1500 every other row starts 8 bytes
 // past a 16-byte boundary: its tile copies are 8 bytes wide, and ldmatrix
-// needs 16-byte aligned rows, so no wider copy can land them. That costs
-// the kKT layout ~20% at t=1500 against ~8% where t*2 is a multiple of 16.
+// needs 16-byte aligned rows, so no wider copy can land them. The kKT
+// layout takes 28% longer than the other at t=1500 and 14% at t=1536, where
+// t*2 is a multiple of 16 (chip_smoke.py on an H100).
 //
 // Every tile walked holds at least one valid key (tiles stop at n_valid),
 // so the running max is finite; query rows at or above t are never stored.
@@ -114,7 +117,7 @@ __device__ __forceinline__ void attn_bf16(const bf16* __restrict__ q,
                                           int n_valid, int kt_bytes) {
   using L = Bf16Tile<HD, kKT>;
   constexpr int kThreads = kWarpsBf16 * 32;
-  constexpr int kChunks = HD / 8;  // 16-byte copies per row of a [row][hd] tile
+  constexpr int kChunks = HD / 8;  // 16-byte copies per [row][hd] tile row
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* kv = qs + L::kQ;  // stage s: K at kv + s*(kK+kV), V after it
