@@ -16,7 +16,8 @@ Phases (any failure exits non-zero and prints no final line):
    and edge lengths; the DTW wavefront and backtrace (B=16, N<=120,
    M=1500) on tied integer and random costs (bit-equal); the decode
    cross-attention (B=8, H=16, hd=64) over int8 and bf16 K/V at F=1500, at
-   the bucket F=384, and at F=1536, 131 and 1; the mel frontend (B=8,
+   the bucket F=384, at F=1536, 131 and 1, and at B=1, F=1500 (one file's
+   window: 16 blocks on the card's 132 SMs); the mel frontend (B=8,
    30 s) at 80 and 128 mels. Each kernel is timed from a ``torch.profiler``
    trace (its own device time, mean over 20 launches after warmup) beside
    its plain version (CUDA events), its bound, and, where one PyTorch call
@@ -67,26 +68,17 @@ DECODE_LEN = 32
 # n_valid values the encoder kernels are held at, T=1500: the ragged tails
 # of their 64-key tiles down to a single valid key
 ENCODER_N_VALID = (1, 63, 64, 65, 1000, 1500)
-# frame counts the cross-attention kernel is held at: the full window, the
-# bucket, an aligned neighbour of the window, an odd count (rows misaligned
-# for every copy width), one frame
-CROSS_FRAMES = (1500, 384, 1536, 131, 1)
-# of them, those timed: the window, the bucket, and F=1536, whose rows are
-# 16-byte aligned where F=1500's are not
-CROSS_TIMED = (1500, 384, 1536)
+# (batch, frames) the cross-attention kernel is held at: the full window,
+# the bucket, an aligned neighbour of the window, an odd count (rows
+# misaligned for every copy width), one frame, and the window for one file
+# (api.align on one utterance: 16 blocks, one per head)
+CROSS_CASES = ((8, 1500), (8, 384), (8, 1536), (8, 131), (8, 1), (1, 1500))
+# of them, those timed: the window, the bucket, F=1536, whose rows are
+# 16-byte aligned where F=1500's are not, and one file's window
+CROSS_TIMED = ((8, 1500), (8, 384), (8, 1536), (1, 1500))
 # a timed call reads inputs rotated over this many bytes of distinct copies,
 # twice the 50 MB L2, so that each launch reads them from HBM
 ROTATE_BYTES = 100e6
-
-# The previous designs' traced times of the kernels redesigned since (NVIDIA
-# H100 80GB HBM3, 700 W), keyed by (row, dtype or frames); the
-# cross-attention ones read L2-warm inputs
-PREV_MS = {("encoder_attn", "bfloat16"): 3.1518,
-           ("encoder_attn", "float32"): 3.1575,
-           ("encoder_attn_kt", "bfloat16"): 3.4222,
-           ("encoder_attn_kt", "float32"): 3.4644,
-           ("cross_attn_int8", 384): 0.0096, ("cross_attn_int8", 1500): 0.0243,
-           ("cross_attn", 384): 0.0088, ("cross_attn", 1500): 0.0484}
 
 
 def log(msg: str) -> None:
@@ -247,9 +239,8 @@ def kernel_phase():
                                    "encoder_attn_kernel", bound)
             call_ms = cuda_ms(lambda: fn(q, k, v, t))
             plain_ms = cuda_ms(lambda: plain(q, k, v, t), iters=3, warmup=1)
-            prev = PREV_MS[name, str(dtype)[6:]]
             log(f"{name} {str(dtype)[6:]} (8,16,1500,64): kernel {ms:.4f} ms"
-                f" ({method}; whole call {call_ms:.4f} ms; before {prev} ms), "
+                f" ({method}; whole call {call_ms:.4f} ms), "
                 f"plain {plain_ms:.4f} ms, sdpa {sdpa_ms:.4f} ms "
                 f"({sdpa_method}), bound {bound:.4f} ms ({ops / 1e9:.1f} "
                 f"GFLOP, {ops / ms / 1e9:.1f} TFLOP/s)")
@@ -261,8 +252,7 @@ def kernel_phase():
                     ms_method=method, plain_ms=plain_ms, bound_ms=bound,
                     bound_by="operations"
                     if ops / peak > nbytes / HBM_BYTES_PER_S else "bytes",
-                    library_ms=sdpa_ms, library_ms_method=sdpa_method,
-                    prev_ms=prev, redesigned_pr=3)
+                    library_ms=sdpa_ms, library_ms_method=sdpa_method)
     # T=1536: K^T rows 16-byte aligned (at T=1500 every other one is 8 bytes
     # off, and the kKT tile copies are 8 bytes wide)
     args = [x.to(torch.bfloat16) for x in encoder_inputs((b, h, 1536, hd))]
@@ -395,10 +385,10 @@ def rotated(fn, args, nbytes: int):
 
 def cross_attn_rows(gen):
     """The decode cross-attention kernel over int8 and bf16 K/V at the full
-    window (F=1500), at the bucket the second main path takes (F=384) and at
-    the other ``CROSS_FRAMES``, against the plain version; those of
-    ``CROSS_TIMED`` timed with inputs rotated out of L2 (``rotated``),
-    beside the L2-warm time the previous design was timed with."""
+    window (F=1500), at the bucket the second main path takes (F=384), at
+    the other ``CROSS_CASES`` and at one file's window (B=1), against the
+    plain version; those of ``CROSS_TIMED`` timed with inputs rotated out of
+    L2 (``rotated``), beside the L2-warm time."""
     import torch
     import torch.nn.functional as F
 
@@ -406,10 +396,11 @@ def cross_attn_rows(gen):
     from whisper_char_alignment_tpu_torch.ops import cross_attn_cuda as ca
 
     dev = torch.device("cuda")
-    b, h, hd = 8, 16, 64
+    h, hd = 16, 64
     k_scale = hd ** -0.25
     rows = {}
-    for f in CROSS_FRAMES:
+    for b, f in CROSS_CASES:
+        shape = f"({b},{h},{hd},{f})"
         q = (torch.randn((b, h, 1, hd), generator=gen, device=dev)
              * k_scale).to(torch.bfloat16)
         kf, vf = (torch.randn((b, h, hd, f), generator=gen, device=dev)
@@ -430,9 +421,9 @@ def cross_attn_rows(gen):
             torch.cuda.synchronize()
             err = (out - ref).abs()
             check(bool((err <= 2e-5 + 2e-5 * ref.abs()).all()),
-                  f"{name} F={f}: max err {err.max().item():.3g}")
-            if f not in CROSS_TIMED:  # an edge: held, not timed
-                log(f"{name} (8,16,64,{f}): max abs err "
+                  f"{name} {shape}: max err {err.max().item():.3g}")
+            if (b, f) not in CROSS_TIMED:  # an edge: held, not timed
+                log(f"{name} {shape}: max abs err "
                     f"{err.max().item():.3g} (tol 2e-5 + 2e-5 rel)")
                 continue
             in_bytes = sum(x.numel() * x.element_size() for x in args)
@@ -441,8 +432,8 @@ def cross_attn_rows(gen):
             bound = max(nbytes / HBM_BYTES_PER_S, ops / PEAK_F32) * 1e3
             cold, n_copies = rotated(step, args, in_bytes)
             ms, method = kernel_ms(cold, "cross_attn_kernel", bound)
-            # the previous method, the same inputs on every launch
-            # (L2-warm): no bound check, since L2 may serve faster than HBM
+            # the same inputs on every launch (L2-warm): no bound check,
+            # since L2 may serve faster than HBM
             warm = device_ms(lambda: step(*args), "cross_attn_kernel")
             call_ms = cuda_ms(cold)
             plain_ms = cuda_ms(lambda: plain(*args, k_scale=k_scale))
@@ -453,18 +444,18 @@ def cross_attn_rows(gen):
                     lambda q_, k_, v_: F.scaled_dot_product_attention(
                         q_, k_, v_, scale=k_scale), (q, kt, vt), in_bytes)
                 lib_ms, lib_method = library_ms(sdpa, bound)
-            prev = PREV_MS.get((name, f))
-            log(f"{name} (8,16,64,{f}): max abs err {err.max().item():.3g} "
+            log(f"{name} {shape}: max abs err {err.max().item():.3g} "
                 f"(tol 2e-5 + 2e-5 rel); kernel {ms:.4f} ms ({method}, "
                 f"inputs rotated over {n_copies} copies; L2-warm {warm} ms; "
-                f"before, L2-warm {prev} ms; whole call {call_ms:.4f} ms), "
-                f"plain {plain_ms:.4f} ms, bound {bound:.5f} ms "
-                f"({nbytes / 1e6:.1f} MB, {nbytes / ms / 1e6:.0f} GB/s)"
+                f"whole call {call_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+                f"bound {bound:.5f} ms ({nbytes / 1e6:.1f} MB, "
+                f"{nbytes / ms / 1e6:.0f} GB/s)"
                 + (f", sdpa {lib_ms:.4f} ms ({lib_method}, rotated)"
                    if lib_ms else ""))
             # the int8 row at the bucket the main path takes, the bf16 row
             # (off every path) at the full window
-            if (name, f) in (("cross_attn_int8", 384), ("cross_attn", 1500)):
+            if (name, b, f) in (("cross_attn_int8", 8, 384),
+                                ("cross_attn", 8, 1500)):
                 rows[name] = dict(
                     name=name, route="cuda",
                     source="whisper_char_alignment_tpu_torch/csrc/cross_attn.cu",
@@ -472,15 +463,14 @@ def cross_attn_rows(gen):
                     ms_method=method, plain_ms=plain_ms, bound_ms=bound,
                     bound_by="bytes" if nbytes / HBM_BYTES_PER_S
                     >= ops / PEAK_F32 else "operations",
-                    library_ms=lib_ms, library_ms_method=lib_method,
-                    prev_ms=prev, redesigned_pr=3)
-        if f not in (384, 1500):
+                    library_ms=lib_ms, library_ms_method=lib_method)
+        if (b, f) not in ((8, 384), (8, 1500)):
             continue
         # the int8 step the mxu mode takes instead of the kernel (plain
         # PyTorch on the int8 codes), as the decode loop calls it
         mxu = lambda: wm._cross_attn_step_int8_mxu(  # noqa: E731
             q, (k8, k_s), (v8, v_s), k_scale, torch.bfloat16)
-        log(f"mxu int8 step (8,16,64,{f}): device {device_ms(mxu)} ms (all "
+        log(f"mxu int8 step {shape}: device {device_ms(mxu)} ms (all "
             f"its kernels, traced), whole call {cuda_ms(mxu):.4f} ms")
     return rows
 
@@ -957,11 +947,9 @@ def main() -> int:
                               else name]
     # ms_method: "trace" (the kernel's traced device time) or "events" (the
     # whole call by CUDA events, where three traces held no record of it)
-    # prev_ms, redesigned_pr: a redesigned kernel's time before its
-    # redesign, and the change that redesigned it (null for the others)
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "ms_method", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "library_ms_method", "prev_ms", "redesigned_pr"]
+            "library_ms", "library_ms_method"]
     print(json.dumps({"kernels": [{k: r.get(k) for k in keys}
                                   for r in rows.values()]}))
     print(json.dumps({"ok": True, "device": {

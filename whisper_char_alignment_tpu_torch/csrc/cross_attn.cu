@@ -37,14 +37,18 @@
 //   1-8 rows at once, its lanes walk the frames (each w[f] read once for
 //   all of them) and shuffles fold sum_f v[d, f] w[f]. int8 codes become
 //   floats through one OR and one add (0x4B0000uu = 2^23 + c + 128),
-//   exact, instead of the quarter-rate integer conversion. F beyond a
-//   stage's width (3072 int8, 1536 bf16 or 512 f32 frames) is walked in
-//   frame chunks with a running max; those runs are no longer contiguous
-//   and go by per-thread 16-byte cp.async of each row's aligned span, its
-//   byte shift kept beside it, reads stopping at the chunk's end. Shared
-//   memory stays under ~211 KB whatever F. What is left is the block's
-//   chain per run (wait, barrier, dependent loads, reductions) on one SM:
-//   with L2-warm inputs it runs only ~25% faster than from HBM.
+//   exact, instead of the quarter-rate integer conversion. int8 K/V take
+//   one stage, up to 3072 frames (Whisper's window is 1500): more is
+//   refused. Float K/V beyond a stage's width (1536 bf16 or 512 f32
+//   frames) are walked in frame chunks with a running max; those runs are
+//   no longer contiguous and go by per-thread 16-byte cp.async of each
+//   row's aligned span, its byte shift kept beside it, reads stopping at
+//   the chunk's end, so shared memory stays under ~211 KB whatever F. What
+//   is left is the block's chain per run (wait, barrier, dependent loads,
+//   reductions) on one SM: with L2-warm inputs it runs only ~25% faster
+//   than from HBM. With one batch item only H blocks run (16 of 132 SMs at
+//   H=16), each through the same chain, so B=1 sits further above its
+//   bound than B=8.
 #include "common.cuh"
 
 namespace {
@@ -239,16 +243,14 @@ __device__ __forceinline__ void pv_rows(float* os, float alpha,
 }
 
 // One decode step for the (item, head) blockIdx.x. chunk: frames per frame
-// chunk (<= max_chunk<T>()); rows: rows per run (kRows, or with one frame
-// chunk up to HD: as many as fit kRunBytes); s_width: bytes per copy of a
-// scale row (16 or 4).
+// chunk (<= max_chunk<T>(); int8: one chunk); rows: rows per run (kRows, or
+// with one frame chunk up to HD: as many as fit kRunBytes).
 template <typename T, int HD, bool kQuant>
 __global__ void __launch_bounds__(kThreads)
     cross_attn_kernel(const float* __restrict__ q, const T* __restrict__ k,
                       const float* __restrict__ k_s, const T* __restrict__ v,
                       const float* __restrict__ v_s, float* __restrict__ o,
-                      int n_frames, int chunk, int rows, float k_scale,
-                      int s_width) {
+                      int n_frames, int chunk, int rows, float k_scale) {
   constexpr int kElem = sizeof(T);
   const int kRuns = HD / rows;  // runs per panel
   // frames a thread scores: tid, tid + kThreads, ...
@@ -263,7 +265,7 @@ __global__ void __launch_bounds__(kThreads)
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw);  // [kStages]
   unsigned char* ring = smem_raw + 64;                 // [kStages][rows][ldr]
   float* scales = reinterpret_cast<float*>(ring + kStages * rows * ldr);
-  float* w = scales + 4 * chunk;  // k_s, v_s for 2 chunks; then w [chunk]
+  float* w = scales + (kQuant ? 2 * chunk : 0);  // k_s, v_s; then w [chunk]
   float* qs = w + chunk;          // [HD]
   float* os = qs + HD;            // [HD]
   float* red = os + HD;           // [kWarps]
@@ -275,10 +277,14 @@ __global__ void __launch_bounds__(kThreads)
   const unsigned char* vb =
       reinterpret_cast<const unsigned char*>(v) + bh * HD * f_bytes;
   const int n_runs = n_chunks * 2 * kRuns;  // per frame chunk: K runs, V runs
-  // q is copied with the first run when bulk; so are the scales where their
-  // rows are 16-byte aligned (F a multiple of 4 and aligned bases)
+  // q is copied with the first run when bulk; so are the scales (int8 is
+  // always bulk) where their rows are 16-byte aligned: F a multiple of 4 and
+  // aligned bases (the scales may be a view into a larger tensor)
   const bool q_bulk = bulk && reinterpret_cast<uintptr_t>(q) % 16 == 0;
-  const uint32_t side = kQuant && bulk && s_width == 16 ? 8u * n_frames : 0u;
+  const bool s_bulk = kQuant && n_frames % 4 == 0 &&
+                      reinterpret_cast<uintptr_t>(k_s) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(v_s) % 16 == 0;
+  const uint32_t side = s_bulk ? 8u * n_frames : 0u;
   if (bulk && tid == 0) {
     for (int i = 0; i < kStages; ++i) mbar_init(bars + i);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -287,7 +293,7 @@ __global__ void __launch_bounds__(kThreads)
 
   // run c into its stage: `rows` rows of a panel's frames [f0, f0 + n), by
   // one bulk copy, or per thread with each row as the 16-byte aligned span
-  // that holds it; the first run of a frame chunk also brings its scales
+  // that holds it (float K/V only)
   auto fetch = [&](int c) {
     const int fc = c / (2 * kRuns), r = c % (2 * kRuns);
     const int f0 = fc * chunk, n = min(chunk, n_frames - f0);
@@ -324,18 +330,6 @@ __global__ void __launch_bounds__(kThreads)
       wca::cp_async<16>(dst + rr * ldr + 16 * piece,
                         src + (valid > 0 ? from : 0), valid);
     }
-    if (kQuant && r == 0) {
-      float* sc = scales + (fc & 1) * 2 * chunk;  // k_s, then v_s
-      const int e = s_width / 4;
-      for (int i = tid * e; i < 2 * n; i += kThreads * e) {
-        const bool is_v = i >= n;
-        const int c0 = is_v ? i - n : i;
-        // a 16-byte copy never straddles the two: n is a multiple of 4 then
-        wca::cp_async_w(sc + (is_v ? chunk : 0) + c0,
-                        (is_v ? v_s : k_s) + bh * n_frames + f0 + c0, s_width,
-                        min(n - c0, e) * 4);
-      }
-    }
     wca::cp_async_commit();
   };
 
@@ -346,7 +340,7 @@ __global__ void __launch_bounds__(kThreads)
     if (!q_bulk) qs[d] = q[bh * HD + d];
     os[d] = 0.f;
   }
-  if (kQuant && bulk && side == 0) {
+  if (kQuant && !s_bulk) {
     for (int f = tid; f < n_frames; f += kThreads) {
       scales[f] = k_s[bh * n_frames + f];
       scales[chunk + f] = v_s[bh * n_frames + f];
@@ -376,13 +370,12 @@ __global__ void __launch_bounds__(kThreads)
                                       tid * kElem, bulk, f_bytes,
                                       (size_t)f0 * kElem);
       if (r == kRuns - 1) {  // the chunk's scores are whole: softmax step
-        const float* sc = scales + (fc & 1) * 2 * chunk;
         float mx = -CUDART_INF_F;
 #pragma unroll
         for (int j = 0; j < kPerThread; ++j) {
           const int f = tid + j * kThreads;
           if (f < n) {
-            s[j] = (kQuant ? s[j] * sc[f] : s[j]) * k_scale;
+            s[j] = (kQuant ? s[j] * scales[f] : s[j]) * k_scale;
             mx = fmaxf(mx, s[j]);
           }
         }
@@ -395,7 +388,7 @@ __global__ void __launch_bounds__(kThreads)
           if (f < n) {
             const float e = expf(s[j] - m_new);
             sum += e;
-            w[f] = kQuant ? e * sc[chunk + f] : e;
+            w[f] = kQuant ? e * scales[chunk + f] : e;
           }
         }
         l_run = l_run * alpha + wca::block_reduce<false>(sum, red);
@@ -425,6 +418,7 @@ cudaError_t launch(const void* q, const void* k, const void* k_s,
                    int n_frames, float k_scale, cudaStream_t stream) {
   // frame chunks of equal width, at most max_chunk<T>(), a multiple of 4
   const int n_chunks = (n_frames + max_chunk<T>() - 1) / max_chunk<T>();
+  if (kQuant && n_chunks > 1) return cudaErrorInvalidValue;  // int8: 1 stage
   const int chunk = ((n_frames + n_chunks - 1) / n_chunks + 3) / 4 * 4;
   const int ldr =
       n_chunks == 1 ? n_frames * (int)sizeof(T) : staged_row<T>(chunk);
@@ -434,19 +428,16 @@ cudaError_t launch(const void* q, const void* k, const void* k_s,
   while (n_chunks == 1 && rows * 2 <= HD && rows * 2 * ldr <= kRunBytes)
     rows *= 2;
   const size_t smem = 64 + (size_t)kStages * rows * ldr +
-                      sizeof(float) * (5 * chunk + 2 * HD + kWarps);
+                      sizeof(float) * ((kQuant ? 3 : 1) * chunk + 2 * HD +
+                                       kWarps);
   constexpr auto kernel = cross_attn_kernel<T, HD, kQuant>;
   cudaError_t err = wca::allow_smem<kernel>(smem);
   if (err != cudaSuccess) return err;
-  // the scales may be a view into a larger tensor: their start decides too
-  const bool s_aligned = reinterpret_cast<uintptr_t>(k_s) % 16 == 0 &&
-                         reinterpret_cast<uintptr_t>(v_s) % 16 == 0;
-  const int s_width = n_frames % 4 == 0 && s_aligned ? 16 : 4;
   kernel<<<bh, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const T*>(k),
       static_cast<const float*>(k_s), static_cast<const T*>(v),
       static_cast<const float*>(v_s), static_cast<float*>(o), n_frames, chunk,
-      rows, k_scale, s_width);
+      rows, k_scale);
   return cudaGetLastError();
 }
 
@@ -475,8 +466,9 @@ int dispatch(const void* q, const void* k, const void* k_s, const void* v,
 
 }  // namespace
 
-// q (bh, hd) f32; k8, v8 (bh, hd, F) int8, 16-byte aligned; k_s, v_s (bh, F)
-// f32; o (bh, hd) f32. All contiguous; hd in 16/32/64/128.
+// q (bh, hd) f32; k8, v8 (bh, hd, F) int8, 16-byte aligned, F <= 3072;
+// k_s, v_s (bh, F) f32; o (bh, hd) f32. All contiguous; hd in
+// 16/32/64/128.
 WCA_EXPORT int wca_cross_attn_int8(const void* q, const void* k8,
                                    const void* k_s, const void* v8,
                                    const void* v_s, void* o, int bh, int hd,

@@ -20,9 +20,11 @@ import torch
 
 from . import _lib
 
-# head dims the kernel is instantiated for; F is not limited (frames beyond
-# a shared-memory stage's width are walked in chunks)
+# head dims the kernel is instantiated for; float F is not limited (frames
+# beyond a shared-memory stage's width are walked in chunks), int8 K/V take
+# one stage (Whisper's window is 1500 frames)
 _HEAD_DIMS = (16, 32, 64, 128)
+_MAX_INT8_FRAMES = 3072
 
 
 def _plain(q, k, v, k_scale: float, k_s=None, v_s=None) -> torch.Tensor:
@@ -77,8 +79,8 @@ def _check(q, k, v, k_s: Optional[torch.Tensor],
 def cross_attn_step_int8(q, k8, k_s, v8, v_s, *,
                          k_scale: float) -> torch.Tensor:
     """The step of :func:`cross_attn_step_int8_plain`: the CUDA kernel for
-    CUDA tensors (int8 codes, float32 scales), the plain version for CPU
-    tensors."""
+    CUDA tensors (int8 codes, float32 scales, F up to 3072), the plain
+    version for CPU tensors."""
     if _check(q, k8, v8, k_s, v_s) == "cpu":
         return cross_attn_step_int8_plain(q, k8, k_s, v8, v_s,
                                           k_scale=k_scale)
@@ -87,6 +89,9 @@ def cross_attn_step_int8(q, k8, k_s, v8, v_s, *,
     if k_s.dtype != torch.float32 or v_s.dtype != torch.float32:
         raise ValueError("k_s and v_s must be float32")
     b, h, hd, f = k8.shape
+    if f > _MAX_INT8_FRAMES:
+        raise ValueError(f"{f} int8 frames exceed the kernel's "
+                         f"{_MAX_INT8_FRAMES}")
     qf = q.float().contiguous()
     k_s, v_s = k_s.contiguous(), v_s.contiguous()
     o = torch.empty((b, h, 1, hd), dtype=torch.float32, device=q.device)
