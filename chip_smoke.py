@@ -13,8 +13,11 @@ Phases (any failure exits non-zero and prints no final line):
    K transposed, at n_valid 1, 63, 64, 65, 1000 and 1500, at head dims 16,
    32 and 128 on a small B*H, and timed at T=1536 (aligned K^T rows); the
    QK post-process (B=8, H=16, T=96, F=1500) at widths 3 and 7 with ragged
-   and edge lengths; the DTW wavefront and backtrace (B=16, N<=120,
-   M=1500) on tied integer and random costs (bit-equal); the decode
+   and edge lengths; the DTW wavefront and backtrace (bit-equal), at
+   B=16, N<=120, M=1500 and at the ``DTW_SHAPES`` edges on tied integer and
+   random costs, with pad rows and walks cut at window edges, timed beside
+   their chains' floor (one dependent shuffle or shared-memory load per
+   step, measured on the card); the decode
    cross-attention (B=8, H=16, hd=64) over int8 and bf16 K/V at F=1500, at
    the bucket F=384, at F=1536, 131 and 1, and at B=1, F=1500 (one file's
    window: 16 blocks on the card's 132 SMs); the mel frontend (B=8,
@@ -37,7 +40,8 @@ Phases (any failure exits non-zero and prints no final line):
    that some rows are flagged and some are not: the pipeline's own decode
    must give each flagged row the exact decode's tokens and each other row
    the int8 + bucket decode's. A tiny f32 model is also held against the
-   CPU path (plain versions).
+   CPU path (plain versions). The DTW kernels are then held and timed on
+   the inputs the default main path gave them (its own shape).
 4. A JSON line of per-kernel numbers, then
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
@@ -103,10 +107,17 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 def device_ms(fn, kernel: str = "", iters: int = 20, warmup: int = 3):
     """Mean device time per call of ``fn``, in ms: the device activity whose
-    name holds ``kernel`` (all of it when empty), summed from a
-    ``torch.profiler`` trace of ``iters`` calls. Unlike CUDA events around
-    back-to-back calls, this leaves out the host time of a wrapper that
-    launches a short kernel. None when the trace holds no device time."""
+    name holds ``kernel`` (all of it when empty), from a ``torch.profiler``
+    trace of ``iters`` calls. Unlike CUDA events around back-to-back calls,
+    this leaves out the host time of a wrapper that launches a short kernel.
+    None when the trace holds no device time.
+
+    A trace can lose records: after a phase of many untraced launches, one
+    held 15 of 20 launches of each DTW kernel, so a sum over ``iters`` calls
+    read 25% low. So each activity's time is its mean per recorded launch
+    times its launches per call (its records over ``iters``, rounded up)."""
+    import math
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -119,10 +130,14 @@ def device_ms(fn, kernel: str = "", iters: int = 20, warmup: int = 3):
         torch.cuda.synchronize()
     us = 0.0
     for evt in prof.key_averages():
-        if kernel in evt.key:
-            us += (getattr(evt, "self_device_time_total", None)
-                   or getattr(evt, "self_cuda_time_total", 0.0))
-    return us / iters / 1e3 if us > 0 else None
+        total = (getattr(evt, "self_device_time_total", None)
+                 or getattr(evt, "self_cuda_time_total", 0.0))
+        if kernel in evt.key and total > 0 and evt.count > 0:
+            if evt.count % iters:
+                log(f"  the trace holds {evt.count} records of {evt.key[:60]}"
+                    f" for {iters} calls")
+            us += total / evt.count * math.ceil(evt.count / iters)
+    return us / 1e3 if us > 0 else None
 
 
 def kernel_ms(fn, kernel: str, bound_ms: float, tries: int = 3):
@@ -298,6 +313,7 @@ def kernel_phase():
     del qk
 
     # -- DTW -----------------------------------------------------------------
+    dtw_edges(gen)
     b, n, m = 16, 120, 1500
     n_len = torch.randint(1, n + 1, (b,), generator=gen, device=dev,
                           dtype=torch.int32)
@@ -310,22 +326,8 @@ def kernel_phase():
     tied = -torch.randint(0, 3, (b, n, m), generator=gen, device=dev).float()
     rand = -torch.rand((b, n, m), generator=gen, device=dev)
     for label, x in (("tied", tied), ("random", rand)):
-        tr = dtw_cuda.dtw_trace(x)
-        tr_ref = dtw_cuda.dtw_trace_plain(x)
-        jf = dtw_cuda.dtw_backtrace_jump(tr, n_len, m_len)
-        jf_ref = dtw_cuda.dtw_jump_frames_plain(tr_ref, n_len, m_len)
-        torch.cuda.synchronize()
-        check(torch.equal(tr, tr_ref), f"dtw trace ({label}) differs")
-        check(torch.equal(jf, jf_ref), f"dtw jump frames ({label}) differ")
-        log(f"dtw {label}: trace and jump frames bit-equal")
-    cells = int((n_len.long() * m_len.long()).sum())
-    d = n + m - 1
-    tr_bytes = cells * 4 + b * d * (n + 1)
-    tr_ops = cells * 5  # 4 comparisons + 1 add per cell
-    tr_bound = max(tr_bytes / HBM_BYTES_PER_S, tr_ops / PEAK_F32) * 1e3
-    steps = int((n_len + m_len).sum())
-    bt_bytes = steps + b * (n + 1) * 4 + 2 * b * 4
-    bt_bound = max(bt_bytes / HBM_BYTES_PER_S, steps * 4 / PEAK_F32) * 1e3
+        hold_dtw(x, n_len, m_len, f"(16,120,1500) {label}")
+    tr_bound, bt_bound, tr_by, bt_by = dtw_bounds(n_len, m_len, n, m)
     ms_tr, method_tr = kernel_ms(lambda: dtw_cuda.dtw_trace(rand),
                                  "dtw_trace_kernel", tr_bound)
     plain_tr = cuda_ms(lambda: dtw_cuda.dtw_trace_plain(rand), iters=3,
@@ -336,28 +338,34 @@ def kernel_phase():
         "dtw_backtrace_kernel", bt_bound)
     plain_bt = cuda_ms(lambda: dtw_cuda.dtw_jump_frames_plain(
         tr, n_len, m_len), iters=3, warmup=1)
+    d = n + m - 1
+    walk = int((n_len + m_len).max())
+    lat = dtw_cuda.chain_step_latency(dev)
+    log(f"dtw chain steps on this card (one warp, 65536 dependent steps): "
+        f"shuffle {lat['shfl_cycles']:.1f} cycles = {lat['shfl_ns']:.2f} ns,"
+        f" shared-memory load {lat['lds_cycles']:.1f} cycles = "
+        f"{lat['lds_ns']:.2f} ns")
     log(f"dtw trace (16,120,1500): kernel {ms_tr:.4f} ms ({method_tr}), "
-        f"plain {plain_tr:.4f} ms, bound {tr_bound:.5f} ms; {d} dependent "
-        "diagonal steps")
-    log(f"dtw backtrace: kernel {ms_bt:.4f} ms ({method_bt}), plain "
-        f"{plain_bt:.4f} ms, bound {bt_bound:.6f} ms; longest walk "
-        f"{int((n_len + m_len).max())} dependent steps")
+        f"{ms_tr * 1e6 / d:.1f} ns per diagonal over {d} dependent "
+        f"diagonals; chain floor {d * lat['shfl_ns'] / 1e6:.4f} ms ({d} x "
+        f"one shuffle); plain {plain_tr:.4f} ms, bound {tr_bound:.5f} ms")
+    log(f"dtw backtrace (16,120,1500): kernel {ms_bt:.4f} ms ({method_bt}), "
+        f"{ms_bt * 1e6 / walk:.1f} ns per walk step over the longest walk "
+        f"of {walk} steps; chain floor {walk * lat['lds_ns'] / 1e6:.4f} ms "
+        f"({walk} x one shared-memory load); plain {plain_bt:.4f} ms, bound "
+        f"{bt_bound:.6f} ms")
     rows["dtw_trace"] = dict(
         name="dtw_trace", route="cuda",
         source="whisper_char_alignment_tpu_torch/csrc/dtw.cu",
         replaces="whisper_char_alignment_tpu/ops/dtw_pallas.py:171",
         max_abs_err=0.0, ms=ms_tr, ms_method=method_tr, plain_ms=plain_tr,
-        bound_ms=tr_bound,
-        bound_by="bytes" if tr_bytes / HBM_BYTES_PER_S >= tr_ops / PEAK_F32
-        else "operations", library_ms=None)
+        bound_ms=tr_bound, bound_by=tr_by, library_ms=None)
     rows["dtw_backtrace"] = dict(
         name="dtw_backtrace", route="cuda",
         source="whisper_char_alignment_tpu_torch/csrc/dtw.cu",
         replaces="whisper_char_alignment_tpu/ops/dtw_pallas.py:290",
         max_abs_err=0.0, ms=ms_bt, ms_method=method_bt, plain_ms=plain_bt,
-        bound_ms=bt_bound,
-        bound_by="bytes" if bt_bytes / HBM_BYTES_PER_S >= steps * 4 / PEAK_F32
-        else "operations", library_ms=None)
+        bound_ms=bt_bound, bound_by=bt_by, library_ms=None)
     # row 5 (dtw_trace_batch) is the wavefront of row 3a returning its trace
     # diagonals: the same kernel, measured above
     rows["dtw_trace_batch"] = dict(
@@ -368,6 +376,108 @@ def kernel_phase():
     rows.update(cross_attn_rows(gen))
     rows.update(mel_rows(gen))
     return rows
+
+
+# (N + 1, M) the DTW kernels are held at: the wavefront's rows-per-lane and
+# warp edges (one warp up to 256 rows, then warps of 256; 449 = the
+# decoder's 448-token context) by M = 1, 2, 90 and 1501 (rows off a 16-byte
+# boundary) and 1500; then 1025 and 4096 rows, the widest one and the limit
+DTW_SHAPES = tuple((n1, m) for n1 in (2, 32, 33, 64, 65, 128, 129, 449)
+                   for m in (1, 2, 90, 1500, 1501)) + ((1025, 90), (4096, 3))
+
+
+def dtw_bounds(n_len, m_len, n: int, m: int):
+    """The DTW kernels' bounds in ms and what sets each: the wavefront reads
+    each item's n_b x m_b costs and writes the trace; the backtrace reads
+    one trace byte per walk step and writes the jump frames."""
+    b = len(n_len)
+    cells = int((n_len.long().clamp(min=0) * m_len.long()).sum())
+    tr_bytes = cells * 4 + b * (n + m - 1) * (n + 1)
+    tr_ops = cells * 5  # 4 comparisons + 1 add per cell
+    steps = int((n_len.clamp(min=0) + m_len).sum())
+    bt_bytes = steps + b * (n + 1) * 4 + 2 * b * 4
+    bt_ops = steps * 4
+    return (max(tr_bytes / HBM_BYTES_PER_S, tr_ops / PEAK_F32) * 1e3,
+            max(bt_bytes / HBM_BYTES_PER_S, bt_ops / PEAK_F32) * 1e3,
+            "bytes" if tr_bytes / HBM_BYTES_PER_S >= tr_ops / PEAK_F32
+            else "operations",
+            "bytes" if bt_bytes / HBM_BYTES_PER_S >= bt_ops / PEAK_F32
+            else "operations")
+
+
+def hold_dtw(x, n_len, m_len, label: str) -> None:
+    """Both DTW kernels on ``x`` and the walks (n_len, m_len) against their
+    plain versions: trace and jump frames bit-equal."""
+    import torch
+
+    from whisper_char_alignment_tpu_torch.ops import dtw_cuda
+
+    tr = dtw_cuda.dtw_trace(x)
+    jf = dtw_cuda.dtw_backtrace_jump(tr, n_len, m_len)
+    tr_ref = dtw_cuda.dtw_trace_plain(x)
+    jf_ref = dtw_cuda.dtw_jump_frames_plain(tr_ref, n_len, m_len)
+    torch.cuda.synchronize()
+    check(torch.equal(tr, tr_ref), f"dtw trace {label} differs")
+    check(torch.equal(jf, jf_ref), f"dtw jump frames {label} differ")
+
+
+def dtw_edges(gen) -> None:
+    """The DTW kernels at every ``DTW_SHAPES`` entry on tied and random
+    costs, each batch holding the full grid, a pad row (n < 0), n = 0,
+    m = 1, one frame, walks that end one diagonal before, at and after a
+    backtrace window edge where M allows, and a random length."""
+    import torch
+
+    from whisper_char_alignment_tpu_torch.ops import dtw_cuda
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    for n1, m in DTW_SHAPES:
+        n = n1 - 1
+        w = dtw_cuda.backtrace_window(n)
+        pairs = [(n, m), (-2, m), (0, m), (n, 1), (1, 1)]
+        pairs += [(n, k * w + e + 1 - n) for k in (1, 2) for e in (-1, 0, 1)
+                  if 1 <= k * w + e + 1 - n <= m]
+        pairs.append((int(torch.randint(1, n + 1, (), generator=gen,
+                                        device=dev)),
+                      int(torch.randint(1, m + 1, (), generator=gen,
+                                        device=dev))))
+        n_len, m_len = (torch.tensor(v, dtype=torch.int32, device=dev)
+                        for v in zip(*pairs))
+        b = len(pairs)
+        tied = -torch.randint(0, 3, (b, n, m), generator=gen,
+                              device=dev).float()
+        rand = torch.randn((b, n, m), generator=gen, device=dev)
+        for label, x in (("tied", tied), ("random", rand)):
+            hold_dtw(x, n_len, m_len, f"(N+1={n1}, M={m}) {label}")
+    log(f"dtw edges: trace and jump frames bit-equal at {len(DTW_SHAPES)} "
+        f"(N+1, M) shapes x tied/random, with pad rows, n=0, m=1 and walks "
+        f"cut at backtrace window edges ({time.perf_counter() - t0:.1f} s)")
+
+
+def dtw_main_shape(inputs) -> None:
+    """Both DTW kernels on the inputs the default main path gave
+    ``dtw_jump_frames`` in its first batch (B, N = T - sot_len, M = 1500):
+    bit-equal to their plain versions, then timed."""
+    from whisper_char_alignment_tpu_torch.ops import dtw_cuda
+
+    x, n_len, m_len = inputs
+    b, n, m = x.shape
+    hold_dtw(x, n_len, m_len, f"main-path shape {tuple(x.shape)}")
+    tr_bound, bt_bound, _, _ = dtw_bounds(n_len, m_len, n, m)
+    ms_tr, method_tr = kernel_ms(lambda: dtw_cuda.dtw_trace(x),
+                                 "dtw_trace_kernel", tr_bound)
+    tr = dtw_cuda.dtw_trace(x)
+    ms_bt, method_bt = kernel_ms(
+        lambda: dtw_cuda.dtw_backtrace_jump(tr, n_len, m_len),
+        "dtw_backtrace_kernel", bt_bound)
+    walk = int((n_len.clamp(min=0) + m_len).max())
+    log(f"dtw at the main path's shape {tuple(x.shape)} (n {n_len.tolist()},"
+        f" m {m_len.tolist()}): trace {ms_tr:.4f} ms ({method_tr}, "
+        f"{ms_tr * 1e6 / (n + m - 1):.1f} ns per diagonal, bound "
+        f"{tr_bound:.5f} ms), backtrace {ms_bt:.4f} ms ({method_bt}, "
+        f"{ms_bt * 1e6 / max(walk, 1):.1f} ns per step of the longest walk "
+        f"of {walk}, bound {bt_bound:.6f} ms); bit-equal")
 
 
 def rotated(fn, args, nbytes: int):
@@ -601,15 +711,15 @@ def tiny_vs_cpu() -> str:
 def spying(seen: dict):
     """Count, while the block runs, the decode steps by the kind of their
     cross K/V (int8 or float) and the frames they span, and the capture
-    passes that reuse the decode loop's K/V, and keep each batch's decode
-    results: the three module functions the runner reaches are wrapped and
-    restored after."""
+    passes that reuse the decode loop's K/V, keep each batch's decode
+    results and a copy of the first batch's DTW inputs: the four module
+    functions the runner reaches are wrapped and restored after."""
     from whisper_char_alignment_tpu_torch.align import timing
     from whisper_char_alignment_tpu_torch.models import decoding
     from whisper_char_alignment_tpu_torch.models import whisper as wm
 
-    step, attentions, decode = (wm.decode_step, timing.get_attentions,
-                                decoding.decode)
+    step, attentions, decode, jump = (wm.decode_step, timing.get_attentions,
+                                      decoding.decode, timing.dtw_jump_frames)
 
     def counted_step(model, tokens, pos, cache, cross_kv, cross_mode=None):
         ck = cross_kv[0]
@@ -628,18 +738,24 @@ def spying(seen: dict):
         seen["results"].append(out[0] if isinstance(out, tuple) else out)
         return out
 
-    wm.decode_step, timing.get_attentions, decoding.decode = (
-        counted_step, counted_attentions, kept_decode)
+    def kept_jump(x, n, m):
+        if seen["dtw_inputs"] is None:
+            seen["dtw_inputs"] = (x.clone(), n.clone(), m.clone())
+        return jump(x, n, m)
+
+    (wm.decode_step, timing.get_attentions, decoding.decode,
+     timing.dtw_jump_frames) = (counted_step, counted_attentions, kept_decode,
+                                kept_jump)
     try:
         yield
     finally:
-        wm.decode_step, timing.get_attentions, decoding.decode = (
-            step, attentions, decode)
+        (wm.decode_step, timing.get_attentions, decoding.decode,
+         timing.dtw_jump_frames) = (step, attentions, decode, jump)
 
 
 def new_seen() -> dict:
     return dict(int8_steps=0, float_steps=0, frames=set(), captures=0,
-                reused=0, results=[])
+                reused=0, results=[], dtw_inputs=None)
 
 
 def check_alignments(results, dataset, n: int) -> None:
@@ -895,7 +1011,7 @@ def main_path_phase(card: str):
                   "[int8+bucket] the capture pass reused int8/bucketed K/V")
             cross_mode_phase(quant_pipe, dataset, card)
             guarded_phase(model, tok, dataset, card)
-    return counts, counts2
+    return counts, counts2, seen["dtw_inputs"]
 
 
 def main() -> int:
@@ -937,7 +1053,9 @@ def main() -> int:
             log(f"  {line.strip()}")
 
     rows = kernel_phase()
-    counts, counts2 = main_path_phase(card)
+    counts, counts2, dtw_inputs = main_path_phase(card)
+    check(dtw_inputs is not None, "the default main path ran no DTW")
+    dtw_main_shape(dtw_inputs)
     # each row's launches come from the run whose path holds its kernel: the
     # default run, or the int8 + bucket run for the mel and cross-attention
     # kernels; row 5 is row 3a's kernel

@@ -195,18 +195,58 @@ def test_qkpost_kernel(cuda, width):
     assert (got - want).abs().max().item() <= 1e-6
 
 
+def _dtw_lengths(n, m, rng):
+    """(n, m) per item: the full grid, the pad row (n < 0), n = 0, m = 1,
+    one frame, walks whose n + m - 1 diagonals end one before, at and one
+    after a backtrace window edge (where M allows), and a random length."""
+    w = dtw_cuda.backtrace_window(n)
+    pairs = [(n, m), (-2, m), (0, m), (n, 1), (1, 1)]
+    for k in (1, 2):
+        for e in (-1, 0, 1):
+            if 1 <= k * w + e + 1 - n <= m:
+                pairs.append((n, k * w + e + 1 - n))
+    pairs.append((int(rng.integers(1, n + 1)), int(rng.integers(1, m + 1))))
+    return pairs
+
+
+# (N + 1, M): the wavefront's rows-per-lane and warp edges (one warp to
+# 256 rows, then warps of 256 rows; 449 = the decoder's 448-token context)
+# by M = 1, 2, 90 and 1501 (rows off a 16-byte boundary) and 1500; then
+# 1025 and 4096 rows, the widest one and the kernel's limit
+_DTW_SHAPES = [(n1, m) for n1 in (2, 32, 33, 64, 65, 128, 129, 449)
+               for m in (1, 2, 90, 1500, 1501)] + [(1025, 90), (4096, 3)]
+
+
 @pytest.mark.parametrize("tied", [True, False])
-def test_dtw_kernels_bit_equal(cuda, tied):
-    rng = np.random.default_rng(int(tied))
-    b, n, m = 6, 17, 90
+@pytest.mark.parametrize("n1,m", _DTW_SHAPES)
+def test_dtw_kernels_bit_equal(cuda, tied, n1, m):
+    n = n1 - 1
+    rng = np.random.default_rng(n1 * 3 + m + int(tied))
+    n_len, m_len = zip(*_dtw_lengths(n, m, rng))
+    b = len(n_len)
     x = (-rng.integers(0, 3, (b, n, m)) if tied
          else rng.normal(size=(b, n, m))).astype(np.float32)
-    n_len = torch.tensor([17, 1, 9, 17, 4, 12], dtype=torch.int32,
-                         device=cuda)
-    m_len = torch.tensor([90, 1, 33, 2, 90, 61], dtype=torch.int32,
-                         device=cuda)
     x = torch.from_numpy(x).to(cuda)
+    n_len, m_len = (torch.tensor(v, dtype=torch.int32, device=cuda)
+                    for v in (n_len, m_len))
+    before = _lib.launch_counts()
     tr = dtw_cuda.dtw_trace(x)
-    assert torch.equal(tr, dtw_cuda.dtw_trace_plain(x))
-    assert torch.equal(dtw_cuda.dtw_backtrace_jump(tr, n_len, m_len),
-                       dtw_cuda.dtw_jump_frames_plain(tr, n_len, m_len))
+    jf = dtw_cuda.dtw_backtrace_jump(tr, n_len, m_len)
+    after = _lib.launch_counts()
+    assert (after["dtw_trace"] - before["dtw_trace"],
+            after["dtw_backtrace"] - before["dtw_backtrace"]) == (1, 1)
+    tr_ref = dtw_cuda.dtw_trace_plain(x)
+    assert torch.equal(tr, tr_ref)
+    assert torch.equal(jf, dtw_cuda.dtw_jump_frames_plain(tr_ref, n_len,
+                                                          m_len))
+
+
+def test_dtw_kernels_refuse_what_they_do_not_take(cuda):
+    with pytest.raises(ValueError, match="rows"):
+        dtw_cuda.dtw_trace(torch.zeros((1, dtw_cuda._MAX_ROWS + 1, 2),
+                                       device=cuda))
+    buf = torch.full((3 * 5 + 1,), 2, dtype=torch.int8, device=cuda)
+    tr = buf[1:].view(1, 3, 5)  # contiguous, 1 byte past a boundary
+    one = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="boundary"):
+        dtw_cuda.dtw_backtrace_jump(tr, one, one)

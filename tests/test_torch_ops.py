@@ -200,6 +200,39 @@ def test_dtw_trace_bit_equal_to_jax_trace_batch(seed):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("m_max", [1, 90, 1501])
+@pytest.mark.parametrize("n_max", [31, 32, 64, 128, 448])
+def test_dtw_bit_equal_at_kernel_edge_shapes(n_max, m_max):
+    """The oracle the card's kernels are held against, at the wavefront's
+    warp edges (31/32 rows per lane group, 64, 128, the decoder's 448
+    context) and at M = 1, 90 and 1501 (rows off a 16-byte boundary), on
+    tied costs: the trace and the jump frames of ``dtw_cuda`` on the CPU
+    equal JAX's ``dtw_trace`` and ``dtw_jump_frames_batch``; the Pallas
+    backtrace (interpret mode) too where it stays quick. Items: the full
+    grid, a pad row (n < 0), n = 0, m = 1 and a random length."""
+    rng = np.random.default_rng(n_max * 7 + m_max)
+    x = -rng.integers(0, 3, size=(5, n_max, m_max)).astype(np.float32)
+    n = np.array([n_max, -1, 0, n_max, rng.integers(1, n_max + 1)], np.int32)
+    m = np.array([m_max, m_max, m_max, 1, rng.integers(1, m_max + 1)],
+                 np.int32)
+    jt = jax.vmap(lambda a, nn, mm: jdtw.dtw_trace(a, nn, mm))(
+        jnp.asarray(x), jnp.asarray(n), jnp.asarray(m))
+    want = np.asarray(jdtw.dtw_jump_frames_batch(jt, jnp.asarray(n),
+                                                 jnp.asarray(m)))
+    before = _lib.launch_counts()
+    tr = dtw_cuda.dtw_trace(_t(x)).numpy()
+    got = dtw_cuda.dtw_jump_frames(_t(x), _t(n), _t(m)).numpy()
+    assert _lib.launch_counts() == before
+    np.testing.assert_array_equal(tr, np.asarray(jt))
+    np.testing.assert_array_equal(got, want)
+    assert (got[1:3] == -1).all()
+    if n_max <= 32 and m_max <= 90:
+        pallas = np.asarray(dtw_pallas.dtw_jump_frames_pallas(
+            jnp.asarray(x), jnp.asarray(np.maximum(n, 0)), jnp.asarray(m),
+            interpret=True))
+        np.testing.assert_array_equal(got, pallas)
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_dtw_single_matrix_matches_numpy_oracle(seed):
     rng = np.random.default_rng(seed)

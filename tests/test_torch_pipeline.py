@@ -201,3 +201,54 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
                              capture_output=True, text=True, timeout=120)
         assert out.returncode != 0
         assert '"ok": true' not in out.stdout
+
+
+@pytest.mark.parametrize("kernel,records,want_ms", [
+    ("dtw_trace_kernel", {"dtw_trace_kernel<1, 32, 8>": (20, 100.0)}, 0.1),
+    # a trace that lost 5 of 20 records still reads the kernel's own time
+    ("dtw_trace_kernel", {"dtw_trace_kernel<1, 32, 8>": (15, 100.0)}, 0.1),
+    # all device work of a call of two launches of one kernel and one of
+    # another, 2 records lost; the runtime's host records carry no time
+    ("", {"gemm": (38, 50.0), "softmax": (20, 10.0),
+          "cudaLaunchKernel": (60, 0.0)}, 0.11),
+    ("dtw_trace_kernel", {"cudaLaunchKernel": (20, 0.0)}, None),
+])
+def test_chip_smoke_device_ms_takes_the_mean_per_recorded_launch(
+        monkeypatch, kernel, records, want_ms):
+    """``chip_smoke.device_ms`` reads a profiler trace of 20 calls: each
+    activity's mean per recorded launch times its launches per call, so a
+    trace that dropped records does not read low."""
+    import importlib.util
+    import types
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    events = [types.SimpleNamespace(key=k, count=c,
+                                    self_device_time_total=c * us)
+              for k, (c, us) in records.items()]
+
+    class FakeProfile:
+        def __init__(self, **kw):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            return events
+
+    monkeypatch.setattr(torch.profiler, "profile", FakeProfile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    calls = []
+    got = smoke.device_ms(lambda: calls.append(1), kernel, iters=20,
+                          warmup=3)
+    assert len(calls) == 23
+    if want_ms is None:
+        assert got is None
+    else:
+        assert got == pytest.approx(want_ms)

@@ -58,6 +58,8 @@ _SIGNATURES = {
     "wca_dtw_trace": [_vp, _vp, _i, _i, _i, _vp],
     # trace, n, m, jump, B, N, M, stream
     "wca_dtw_backtrace": [_vp, _vp, _vp, _vp, _i, _i, _i, _vp],
+    # out (5 float64), steps, stream: latency of the DTW kernels' chain steps
+    "wca_dtw_chain_probe": [_vp, _i, _vp],
     # q, k8, k_s, v8, v_s, o, batch*heads, head_dim, F, k_scale, stream
     "wca_cross_attn_int8": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _f,
                             _vp],

@@ -19,8 +19,17 @@ from .dtw import dtw_jump_frames_batch, dtw_trace as _dtw_trace
 dtw_trace_plain = _dtw_trace
 dtw_jump_frames_plain = dtw_jump_frames_batch
 
-# the wavefront keeps three (N + 1)-float diagonals in 48 KB of shared memory
-_MAX_ROWS = 48 * 1024 // 12 - 1
+# the wavefront takes up to 16 warps of 256 text rows (csrc/dtw.cu)
+_MAX_ROWS = 16 * 256 - 1
+# bytes of trace the backtrace stages per window (kBtWindowBytes in dtw.cu)
+_BT_WINDOW_BYTES = 16384
+
+
+def backtrace_window(n_rows: int) -> int:
+    """Trace diagonals per window of the backtrace kernel at N = ``n_rows``
+    (as csrc/dtw.cu computes it): the walk crosses a window edge every this
+    many diagonals down from n_b + m_b."""
+    return max(2, _BT_WINDOW_BYTES // (n_rows + 1))
 
 
 def dtw_trace(x: torch.Tensor) -> torch.Tensor:
@@ -64,6 +73,7 @@ def dtw_backtrace_jump(trace: torch.Tensor, n: torch.Tensor,
         raise ValueError("trace must be contiguous int8")
     if n.dtype != torch.int32 or m.dtype != torch.int32:
         raise ValueError("n and m must be int32")
+    _lib.require_aligned("dtw_backtrace", trace)  # 16-byte window copies
     n_rows = n1 - 1
     m_cols = n_diags - n_rows + 1
     jump = torch.empty((b, n1), dtype=torch.int32, device=trace.device)
@@ -81,3 +91,17 @@ def dtw_jump_frames(x: torch.Tensor, n: torch.Tensor,
     """(B, N, M) f32 costs -> (B, N + 1) int32 first-visit frames: the
     wavefront then the backtrace."""
     return dtw_backtrace_jump(dtw_trace(x), n, m)
+
+
+def chain_step_latency(device: torch.device, steps: int = 65536) -> dict:
+    """Latency of one dependent step of each kind that lies on the kernels'
+    chains, measured on the card by one warp over ``steps`` steps: a warp
+    shuffle (the wavefront's) and a shared-memory load (the walk's), in
+    clock cycles and nanoseconds. Not a kernel of the port: no count."""
+    out = torch.zeros(5, dtype=torch.float64, device=device)
+    rc = _lib.library().wca_dtw_chain_probe(
+        out.data_ptr(), steps, torch.cuda.current_stream(device).cuda_stream)
+    _lib.check(rc, "dtw_chain_probe")
+    shfl_cyc, shfl_ns, lds_cyc, lds_ns, _ = out.tolist()
+    return dict(shfl_cycles=shfl_cyc, shfl_ns=shfl_ns, lds_cycles=lds_cyc,
+                lds_ns=lds_ns)
