@@ -22,12 +22,12 @@ Phases (any failure exits non-zero and prints no final line):
    the bucket F=384, at F=1536, 131 and 1, and at B=1, F=1500 (one file's
    window: 16 blocks on the card's 132 SMs); the mel frontend (B=8,
    30 s) at 80 and 128 mels. Each kernel is timed from a ``torch.profiler``
-   trace (its own device time, mean over 20 launches after warmup) beside
-   its plain version (CUDA events), its bound, and, where one PyTorch call
-   computes the same function, that call; the cross-attention and its SDPA
-   yardstick read inputs rotated over 100 MB of copies, so from HBM, with
-   the L2-warm time beside; the plain int8 step of the ``mxu`` mode is
-   timed beside the cross-attention kernel.
+   trace of 20 calls after warmup (its own device time per recorded
+   launch) beside its plain version (CUDA events), its bound, and, where
+   one PyTorch call computes the same function, that call; the
+   cross-attention and its SDPA yardstick read inputs rotated over 100 MB
+   of copies, so from HBM, with the L2-warm time beside; the plain int8
+   step of the ``mxu`` mode is timed beside the cross-attention kernel.
 3. The port's main path, ``AlignmentPipeline.run_dataset`` at Whisper-medium
    width (random weights from torch.Generator seed 0, bf16, toy tokenizer,
    16 synthetic utterances of 2-7 s), twice: as configured by default, and
@@ -112,10 +112,11 @@ def device_ms(fn, kernel: str = "", iters: int = 20, warmup: int = 3):
     this leaves out the host time of a wrapper that launches a short kernel.
     None when the trace holds no device time.
 
-    A trace can lose records: after a phase of many untraced launches, one
-    held 15 of 20 launches of each DTW kernel, so a sum over ``iters`` calls
-    read 25% low. So each activity's time is its mean per recorded launch
-    times its launches per call (its records over ``iters``, rounded up)."""
+    A trace can lose records: after a phase of many untraced launches it
+    can hold fewer launches than were made, and a sum over ``iters`` calls
+    then reads low. So each activity's time is its mean per recorded launch
+    times its launches per call (its records over ``iters``, rounded up),
+    and a count that is not a multiple of ``iters`` is logged."""
     import math
 
     import torch
@@ -378,12 +379,14 @@ def kernel_phase():
     return rows
 
 
-# (N + 1, M) the DTW kernels are held at: the wavefront's rows-per-lane and
-# warp edges (one warp up to 256 rows, then warps of 256; 449 = the
-# decoder's 448-token context) by M = 1, 2, 90 and 1501 (rows off a 16-byte
-# boundary) and 1500; then 1025 and 4096 rows, the widest one and the limit
+# (N + 1, M) the DTW kernels are held at: the wavefront's warp edges (a
+# warp of 32 rows, one per lane, up to 256 rows; 449 = the decoder's
+# 448-token context, at 2 rows per lane) by M = 1, 2, 90 and 1501 (rows off
+# a 16-byte boundary) and 1500; then the edges of 2 rows per lane (257) and
+# of 8 (1025), and 4096 rows, the kernel's limit
 DTW_SHAPES = tuple((n1, m) for n1 in (2, 32, 33, 64, 65, 128, 129, 449)
-                   for m in (1, 2, 90, 1500, 1501)) + ((1025, 90), (4096, 3))
+                   for m in (1, 2, 90, 1500, 1501)) + (
+    (256, 90), (257, 90), (1024, 7), (1025, 90), (4096, 3))
 
 
 def dtw_bounds(n_len, m_len, n: int, m: int):

@@ -209,12 +209,16 @@ def _dtw_lengths(n, m, rng):
     return pairs
 
 
-# (N + 1, M): the wavefront's rows-per-lane and warp edges (one warp to
-# 256 rows, then warps of 256 rows; 449 = the decoder's 448-token context)
-# by M = 1, 2, 90 and 1501 (rows off a 16-byte boundary) and 1500; then
-# 1025 and 4096 rows, the widest one and the kernel's limit
+# (N + 1, M): the wavefront's warp edges (a warp of 32 rows, one per lane,
+# up to 256 rows; 449 = the decoder's 448-token context, at 2 rows per
+# lane) by M = 1, 2, 90 and 1501 (rows off a 16-byte boundary) and 1500;
+# the edges of 2 rows per lane (257) and of 8 (1025), and 4096 rows, the
+# kernel's limit; then the smoke's (16, 120, 1500) and the main path's
+# N = 93 at M = 1500
 _DTW_SHAPES = [(n1, m) for n1 in (2, 32, 33, 64, 65, 128, 129, 449)
-               for m in (1, 2, 90, 1500, 1501)] + [(1025, 90), (4096, 3)]
+               for m in (1, 2, 90, 1500, 1501)] + [
+    (256, 90), (257, 90), (1024, 7), (1025, 90), (4096, 3), (121, 1500),
+    (94, 1500)]
 
 
 @pytest.mark.parametrize("tied", [True, False])
