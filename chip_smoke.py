@@ -20,13 +20,15 @@ Phases (any failure exits non-zero and prints no final line):
    step, measured on the card); the decode
    cross-attention (B=8, H=16, hd=64) over int8 and bf16 K/V at F=1500, at
    the bucket F=384, at F=1536, 131 and 1, and at B=1, F=1500 (one file's
-   window: 16 blocks on the card's 132 SMs); the mel frontend (B=8,
-   30 s) at 80 and 128 mels. Each kernel is timed from a ``torch.profiler``
-   trace of 20 calls after warmup (its own device time per recorded
-   launch) beside its plain version (CUDA events), its bound, and, where
-   one PyTorch call computes the same function, that call; the
-   cross-attention and its SDPA yardstick read inputs rotated over 100 MB
-   of copies, so from HBM, with the L2-warm time beside; the plain int8
+   window: 16 blocks on the card's 132 SMs); the mel spectrum and clip
+   kernels (B=8, 30 s) at 80 and 128 mels, the clip bit-equal, beside
+   Whisper's ``torch.stft`` frontend (a composite yardstick). Each kernel is
+   timed from a ``torch.profiler`` trace of 20 calls after warmup (its own
+   device time per recorded launch) beside its plain version (CUDA
+   events), its bound, and, where one PyTorch call computes the same
+   function, that call; the cross-attention, the mel kernels and their
+   yardsticks read inputs rotated over 100 MB of copies, so from HBM, with
+   the L2-warm time beside; the plain int8
    step of the ``mxu`` mode is timed beside the cross-attention kernel.
 3. The port's main path, ``AlignmentPipeline.run_dataset`` at Whisper-medium
    width (random weights from torch.Generator seed 0, bf16, toy tokenizer,
@@ -589,11 +591,19 @@ def cross_attn_rows(gen):
 
 
 def mel_rows(gen):
-    """The mel kernel on 8 windows of 30 s whose first 2-7 s hold a tone in
-    noise and the rest silence, as the runner pads utterances."""
+    """The two mel kernels on 8 windows of 30 s whose first 2-7 s hold a
+    tone in noise and the rest silence, as the runner pads utterances:
+    ``log_mel`` against its plain version, the clip kernel alone bit-equal
+    to ``clip_and_scale``; the spectrum kernel timed in ``log_mel`` calls
+    on audio rotated out of L2, the clip kernel on rotated log10 spectra
+    (in the call it reads what the spectrum kernel just wrote, from L2),
+    each beside its bound, with the L2-warm times, the whole call, the
+    plain version and Whisper's own frontend in PyTorch (``torch.stft``
+    and the rest: a composite yardstick the port never calls)."""
     import numpy as np
     import torch
 
+    from whisper_char_alignment_tpu_torch.audio.mel import mel_filterbank
     from whisper_char_alignment_tpu_torch.ops import mel_cuda
 
     dev = torch.device("cuda")
@@ -604,6 +614,8 @@ def mel_rows(gen):
              + 0.4 * torch.sin(2 * np.pi * 440.0 * t))
     audio = torch.where(t[None] * 16000 < live[:, None], audio, 0.0)
     n_frames = n // 160
+    n_tiles = -(-n_frames // mel_cuda.TILE_FRAMES)
+    window = torch.hann_window(400, device=dev)
     rows = {}
     for n_mels in (80, 128):
         out = mel_cuda.log_mel(audio, n_mels)
@@ -611,27 +623,78 @@ def mel_rows(gen):
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
         check(err <= 1e-4, f"mel n_mels={n_mels}: max err {err:.3g}")
-        fb_nonzeros = int(np.count_nonzero(mel_cuda._tables(n_mels)[3]))
+        # the clip kernel alone, on the plain log10 spectrum and its tile
+        # maxima taken in PyTorch: bit-equal
+        log10_ref = mel_cuda.log10_mel_plain(audio, n_mels).contiguous()
+        tiles_ref = torch.nn.functional.pad(
+            log10_ref, (0, n_tiles * mel_cuda.TILE_FRAMES - n_frames),
+            value=-float("inf")).reshape(b, n_mels, n_tiles, -1).amax(
+                dim=(1, 3)).contiguous()
+        clipped = mel_cuda.mel_clip(log10_ref.clone(), tiles_ref)
+        check(torch.equal(clipped, mel_cuda.clip_and_scale(log10_ref)),
+              f"mel clip n_mels={n_mels}: not bit-equal to clip_and_scale")
+        _, tiles = mel_cuda.log10_mel_kernel(audio, n_mels)
+        tile_err = (tiles - tiles_ref).abs().max().item()
+        check(tile_err <= 4e-4, f"mel tile maxima n_mels={n_mels}: max err "
+              f"{tile_err:.3g}")
+
+        fb_nonzeros = int(mel_cuda._tables(n_mels)[2].size)
         # the function's own work per frame: window, a real 400-point FFT
         # (2.5 N log2 N), power, the filterbank's nonzeros, the log
         fft = 2.5 * 400 * np.log2(400)
         rest = 400 + 201 * 3 + 2 * fb_nonzeros + 4 * n_mels
         ops = b * n_frames * (fft + rest)
-        # the kernel's design does more: the DFT as 400 x 201 complex
-        # products per frame
-        design_ops = b * n_frames * (400 * 201 * 4 + rest)
-        nbytes = 4 * b * n + 4 * b * n_mels * n_frames
+        out_bytes = 4 * b * n_mels * n_frames
+        nbytes = 4 * b * n + out_bytes
         bound = max(ops / PEAK_F32, nbytes / HBM_BYTES_PER_S) * 1e3
-        ms, method = kernel_ms(lambda: mel_cuda.log_mel(audio, n_mels),
-                               "mel_kernel", bound)
-        call_ms = cuda_ms(lambda: mel_cuda.log_mel(audio, n_mels))
+        clip_bytes = 2 * out_bytes + 4 * b * n_tiles
+        clip_ops = 3 * b * n_mels * n_frames
+        clip_bound = max(clip_ops / PEAK_F32,
+                         clip_bytes / HBM_BYTES_PER_S) * 1e3
+
+        call = lambda a: mel_cuda.log_mel(a, n_mels)  # noqa: E731
+        cold, n_copies = rotated(call, (audio,), 4 * b * n)
+        ms, method = kernel_ms(cold, "mel_spectrum_kernel", bound)
+        warm = device_ms(lambda: call(audio), "mel_spectrum_kernel")
+        warm_clip = device_ms(lambda: call(audio), "mel_clip_kernel")
+        clip_cold, clip_copies = rotated(mel_cuda.mel_clip,
+                                         (log10_ref.clone(), tiles_ref),
+                                         out_bytes)
+        clip_ms, clip_method = kernel_ms(clip_cold, "mel_clip_kernel",
+                                         clip_bound)
+        call_ms = cuda_ms(cold)
+        call_warm_ms = cuda_ms(lambda: call(audio))
         plain_ms = cuda_ms(lambda: mel_cuda.log_mel_plain(audio, n_mels))
-        log(f"mel (8, 480000) n_mels={n_mels}: max abs err {err:.3g} "
-            f"(tol 1e-4); kernel {ms:.4f} ms ({method}; whole call with the "
-            f"clip {call_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
-            f"{bound:.5f} ms ({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP "
-            f"with an FFT); the DFT design's own work {design_ops / 1e9:.2f} "
-            f"GFLOP, {design_ops / PEAK_F32 * 1e3:.4f} ms at the f32 peak")
+        clip_plain_ms = cuda_ms(lambda: mel_cuda.clip_and_scale(log10_ref))
+
+        fb = torch.from_numpy(mel_filterbank(n_mels)).to(dev)
+
+        def composite(a):  # Whisper's log_mel_spectrogram, batched
+            spec = torch.stft(a, 400, 160, window=window, center=True,
+                              pad_mode="reflect", return_complex=True)
+            mel = fb @ (spec[..., :-1].abs() ** 2)
+            log_spec = torch.clamp(mel, min=1e-10).log10()
+            log_spec = torch.maximum(
+                log_spec, log_spec.amax(dim=(-2, -1), keepdim=True) - 8.0)
+            return (log_spec + 4.0) / 4.0
+
+        comp_err = (composite(audio) - ref).abs().max().item()
+        comp_cold, _ = rotated(composite, (audio,), 4 * b * n)
+        lib_ms, lib_method = library_ms(comp_cold, bound)
+        log(f"mel (8, 480000) n_mels={n_mels}: max abs err {err:.3g} (tol "
+            f"1e-4); tile maxima max err {tile_err:.3g}; clip kernel "
+            f"bit-equal. Spectrum kernel {ms:.4f} ms ({method}, audio "
+            f"rotated over {n_copies} copies; L2-warm {warm} ms), bound "
+            f"{bound:.5f} ms ({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP; "
+            f"{nbytes / ms / 1e6:.0f} GB/s); clip kernel {clip_ms:.4f} ms "
+            f"({clip_method}, rotated over {clip_copies} copies; in the call,"
+            f" L2-warm, {warm_clip} ms), bound {clip_bound:.5f} ms "
+            f"({clip_bytes / 1e6:.1f} MB); whole call {call_ms:.4f} ms "
+            f"(CUDA events, rotated; L2-warm {call_warm_ms:.4f} ms); plain "
+            f"{plain_ms:.4f} ms (clip_and_scale alone {clip_plain_ms:.4f} "
+            f"ms); composite torch.stft frontend {lib_ms:.4f} ms "
+            f"({lib_method}, rotated; max abs diff from plain "
+            f"{comp_err:.3g})")
         if n_mels == 80:  # Whisper-medium's
             rows["mel"] = dict(
                 name="mel", route="cuda",
@@ -640,7 +703,18 @@ def mel_rows(gen):
                 max_abs_err=err, ms=ms, ms_method=method, plain_ms=plain_ms,
                 bound_ms=bound,
                 bound_by="operations" if ops / PEAK_F32
-                >= nbytes / HBM_BYTES_PER_S else "bytes", library_ms=None)
+                >= nbytes / HBM_BYTES_PER_S else "bytes", library_ms=lib_ms,
+                library_ms_method=f"{lib_method}, composite: torch.stft "
+                "frontend")
+            rows["mel_clip"] = dict(
+                name="mel_clip", route="cuda",
+                source="whisper_char_alignment_tpu_torch/csrc/mel.cu",
+                replaces="whisper_char_alignment_tpu/ops/mel_pallas.py:105",
+                max_abs_err=0.0, ms=clip_ms, ms_method=clip_method,
+                plain_ms=clip_plain_ms, bound_ms=clip_bound,
+                bound_by="operations" if clip_ops / PEAK_F32
+                >= clip_bytes / HBM_BYTES_PER_S else "bytes",
+                library_ms=None)
     return rows
 
 
@@ -912,7 +986,7 @@ def guarded_phase(model, tok, dataset, card: str) -> None:
     expect = dict.fromkeys(counts, 0)
     layers = model.dims.n_text_layer
     expect.update(encoder_attn=model.dims.n_audio_layer, qkpost=layers,
-                  dtw_trace=1, dtw_backtrace=1, mel=1,
+                  dtw_trace=1, dtw_backtrace=1, mel=1, mel_clip=1,
                   cross_attn_int8=layers * seen["int8_steps"])
     log(f"[guarded] launch counts: {counts} (expected {expect}); decode "
         f"steps int8 {seen['int8_steps']}, exact re-decode "
@@ -1000,6 +1074,7 @@ def main_path_phase(card: str):
         with environ(WCA_CROSS_ATTN="pallas", WCA_MEL_IMPL="pallas"):
             quant = expected(
                 mel=lambda seen: n_batches,
+                mel_clip=lambda seen: n_batches,
                 cross_attn_int8=lambda seen: dims.n_text_layer
                 * seen["int8_steps"])
             quant_pipe = pipeline(decode_kv_int8=True,

@@ -168,18 +168,71 @@ def test_cross_attention_float_kernel(cuda, dtype, frames, hd):
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
 
 
+def _mel_audio(n, seed):
+    """Four items: noise, a tone in noise that falls silent halfway, silence
+    with a loud tail (the item's maximum in its last tile), all zeros."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 16000
+    audio = rng.normal(0, 0.1, (4, n)).astype(np.float32)
+    audio[1] += 0.4 * np.sin(2 * np.pi * 440 * t).astype(np.float32)
+    audio[1, n // 2:] = 0.0
+    audio[2, : n - min(n // 4, 3000)] = 0.0
+    audio[2] *= 4.0
+    audio[3] = 0.0
+    return audio
+
+
+# one frame; the reflect at both ends inside one tile; n_samples not a
+# multiple of 160 (nor of 4); 3 s; 30 s, the main path's window
+MEL_LENGTHS = [201, 359, 400, 24000, 24159, 48000, 480000]
+
+
+@pytest.mark.parametrize("n", MEL_LENGTHS)
 @pytest.mark.parametrize("n_mels", [80, 128])
-def test_mel_kernel(cuda, n_mels):
-    rng = np.random.default_rng(n_mels)
-    audio = rng.normal(0, 0.1, (3, 48000)).astype(np.float32)
-    audio[2, 16000:] = 0.0
-    audio = torch.from_numpy(audio).to(cuda)
-    before = _lib.launch_counts()["mel"]
+def test_mel_kernels(cuda, n_mels, n):
+    audio = torch.from_numpy(_mel_audio(n, n_mels + n)).to(cuda)
+    before = _lib.launch_counts()
     got = mel_cuda.log_mel(audio, n_mels)
-    assert _lib.launch_counts()["mel"] == before + 1
+    after = _lib.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == dict(
+        dict.fromkeys(after, 0), mel=1, mel_clip=1)
     want = mel_cuda.log_mel_plain(audio, n_mels)
-    assert got.shape == (3, n_mels, 300)
+    assert got.shape == (4, n_mels, n // 160)
     assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("n_mels", [80, 128])
+def test_mel_kernels_on_an_unaligned_item_start(cuda, n_mels):
+    """Rows of 24001 samples: every other item starts off a 16-byte
+    boundary, so its interior tiles load one sample at a time."""
+    audio = torch.from_numpy(_mel_audio(24001, 3)).to(cuda)
+    got = mel_cuda.log_mel(audio, n_mels)
+    want = mel_cuda.log_mel_plain(audio, n_mels)
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("n", [359, 24159, 480000])
+@pytest.mark.parametrize("n_mels", [80, 128])
+def test_mel_clip_kernel_bit_equal(cuda, n_mels, n):
+    """The clip kernel alone on the plain log10 spectrum and its 64-frame
+    tile maxima taken in PyTorch: bit-equal to ``clip_and_scale``."""
+    audio = torch.from_numpy(_mel_audio(n, n_mels)).to(cuda)
+    log_spec = mel_cuda.log10_mel_plain(audio, n_mels).contiguous()
+    n_frames = log_spec.shape[-1]
+    n_tiles = -(-n_frames // mel_cuda.TILE_FRAMES)
+    padded = torch.nn.functional.pad(
+        log_spec, (0, n_tiles * mel_cuda.TILE_FRAMES - n_frames),
+        value=-float("inf"))
+    tile_max = padded.reshape(4, n_mels, n_tiles, -1).amax(dim=(1, 3))
+    before = _lib.launch_counts()["mel_clip"]
+    got = mel_cuda.mel_clip(log_spec.clone(), tile_max.contiguous())
+    assert _lib.launch_counts()["mel_clip"] == before + 1
+    assert torch.equal(got, mel_cuda.clip_and_scale(log_spec))
+
+
+def test_mel_kernel_refuses_more_than_128_mels(cuda):
+    with pytest.raises(ValueError, match="n_mels=129"):
+        mel_cuda.log_mel(torch.zeros((1, 4000), device=cuda), n_mels=129)
 
 
 @pytest.mark.parametrize("width", [1, 3, 7, 15])

@@ -44,7 +44,8 @@ QKPOST_MAX_WIDTH = 15
 
 LAUNCHES: Dict[str, int] = {
     "encoder_attn": 0, "encoder_attn_kt": 0, "qkpost": 0, "dtw_trace": 0,
-    "dtw_backtrace": 0, "cross_attn_int8": 0, "cross_attn": 0, "mel": 0}
+    "dtw_backtrace": 0, "cross_attn_int8": 0, "cross_attn": 0, "mel": 0,
+    "mel_clip": 0}
 
 _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -65,9 +66,12 @@ _SIGNATURES = {
                             _vp],
     # q, k, v, o, batch*heads, head_dim, F, k_scale, is_bf16, stream
     "wca_cross_attn": [_vp, _vp, _vp, _vp, _i, _i, _i, _f, _i, _vp],
-    # audio, window, cos column, sin column, filterbank, lo, hi, out, B,
-    # n_samples, n_frames, n_mels, stream
-    "wca_mel": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _vp],
+    # audio, window, twiddles, packed filter runs, lo, off, out, tile_max,
+    # B, n_samples, n_frames, n_mels, n_nz, stream
+    "wca_mel": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
+                _vp],
+    # x, tile_max, B, per_item, n_tiles, stream
+    "wca_mel_clip": [_vp, _vp, _i, _i, _i, _vp],
 }
 
 _lock = threading.Lock()
