@@ -23,13 +23,13 @@ Phases (any failure exits non-zero and prints no final line):
    window: 16 blocks on the card's 132 SMs); the mel spectrum and clip
    kernels (B=8, 30 s) at 80 and 128 mels, the clip bit-equal, beside
    Whisper's ``torch.stft`` frontend (a composite yardstick). Each kernel is
-   timed from a ``torch.profiler`` trace of 20 calls after warmup (its own
-   device time per recorded launch) beside its plain version (CUDA
-   events), its bound, and, where one PyTorch call computes the same
-   function, that call; the cross-attention, the mel kernels and their
-   yardsticks read inputs rotated over 100 MB of copies, so from HBM, with
-   the L2-warm time beside; the plain int8
-   step of the ``mxu`` mode is timed beside the cross-attention kernel.
+   timed from a ``torch.profiler`` trace of 20 calls after warmup (the
+   median of the records of its launches made in the trace) beside its
+   plain version (CUDA events), its bound, and, where one PyTorch call
+   computes the same function, that call; the cross-attention, the mel
+   kernels and their yardsticks read inputs rotated over 100 MB of copies,
+   so from HBM, with the L2-warm time beside; the plain int8 step of the
+   ``mxu`` mode is timed beside the cross-attention kernel.
 3. The port's main path, ``AlignmentPipeline.run_dataset`` at Whisper-medium
    width (random weights from torch.Generator seed 0, bf16, toy tokenizer,
    16 synthetic utterances of 2-7 s), twice: as configured by default, and
@@ -143,21 +143,61 @@ def device_ms(fn, kernel: str = "", iters: int = 20, warmup: int = 3):
     return us / 1e3 if us > 0 else None
 
 
-def kernel_ms(fn, kernel: str, bound_ms: float, tries: int = 3):
-    """(ms, method): the device time per call of the kernel named
-    ``kernel`` (:func:`device_ms`), ``"trace"``. A traced time below the
-    card's bound for the work is impossible, so it fails: the bound or its
-    byte count is wrong. A trace that holds no record of the kernel is taken
-    again, up to ``tries`` times; only then the CUDA-event time of the whole
-    call (host time included) stands in, ``"events"``."""
+def launch_ms(fn, kernel: str, iters: int = 20, warmup: int = 3):
+    """The device times in ms, sorted, of the launches of the kernel named
+    ``kernel`` in a ``torch.profiler`` trace of ``iters`` calls of ``fn``
+    after warmup, each launch's own record. Only launches that began inside
+    the trace count: a trace can hand back records of launches made before
+    it, which time other inputs."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sorted((e.time_range.end - e.time_range.start) / 1e3
+                  for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and kernel in e.name
+                  and e.time_range.start >= 0)
+
+
+def kernel_ms(fn, kernel: str, bound_ms: float, tries: int = 3,
+              iters: int = 20):
+    """(ms, method): the device time of one launch of the kernel named
+    ``kernel``, which ``fn`` launches once a call: the median of its
+    launches' own records in a trace of ``iters`` calls
+    (:func:`launch_ms`), ``"trace"``. A trace that holds records of fewer
+    than half the calls, or of more launches than calls, is taken again, up
+    to ``tries`` times; only then the CUDA-event time of the whole call
+    (host time included) stands in, ``"events"``. A traced time below the
+    card's bound for the work is impossible: it is taken again too, and
+    fails the run if no trace reads at or above the bound, since then the
+    bound or its byte count is wrong."""
+    import statistics
+
+    below = []
     for _ in range(tries):
-        ms = device_ms(fn, kernel)
-        if ms is not None:
-            check(ms >= bound_ms, f"{kernel}: traced {ms:.4g} ms is below "
-                  f"its bound {bound_ms:.4g} ms")
+        times = launch_ms(fn, kernel, iters)
+        if not iters // 2 <= len(times) <= iters:
+            log(f"  the trace holds {len(times)} records of {kernel} for "
+                f"{iters} calls: tracing again")
+            continue
+        ms = statistics.median(times)
+        if ms >= bound_ms:
             return ms, "trace"
-        log(f"  the trace holds no {kernel}: tracing again")
-    log(f"  {tries} traces held no {kernel}: CUDA events of the whole call")
+        below.append(ms)
+        log(f"  {kernel}: traced {ms:.4g} ms ({len(times)} launches, "
+            f"{times[0]:.4g} to {times[-1]:.4g} ms) is below its bound "
+            f"{bound_ms:.4g} ms: tracing again")
+    check(not below, f"{kernel}: every trace read below its bound "
+          f"{bound_ms:.4g} ms ({', '.join(f'{ms:.4g}' for ms in below)} ms)")
+    log(f"  {tries} traces held too few or too many records of {kernel}: "
+        f"CUDA events of the whole call")
     return cuda_ms(fn), "events"
 
 

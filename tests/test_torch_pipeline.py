@@ -252,3 +252,80 @@ def test_chip_smoke_device_ms_takes_the_mean_per_recorded_launch(
         assert got is None
     else:
         assert got == pytest.approx(want_ms)
+
+
+# records per trace: (name, start us relative to the trace, duration us,
+# count); a trace's kernel is "mel_clip_kernel", its bound 0.05 ms
+_OWN = ("mel_clip_kernel(float*)", 10.0, 100.0)
+
+
+@pytest.mark.parametrize("traces,want", [
+    ([[_OWN + (20,)]], (0.1, "trace", 1)),
+    # 7 of 20 records lost
+    ([[_OWN + (13,)]], (0.1, "trace", 1)),
+    # records of launches made before the trace (an L2-warm call's) and the
+    # runtime's host records are not counted
+    ([[_OWN + (20,), ("mel_clip_kernel(float*)", -400.0, 40.0, 20),
+       ("cudaLaunchKernel", 10.0, 3.0, 20)]], (0.1, "trace", 1)),
+    # a stray short record does not move the median
+    ([[_OWN + (18,), ("mel_clip_kernel(float*)", 10.0, 40.0, 2)]],
+     (0.1, "trace", 1)),
+    # too few records, then too many: traced again, then a whole trace
+    ([[_OWN + (9,)], [_OWN + (21,)], [_OWN + (20,)]], (0.1, "trace", 3)),
+    # three traces with too few records: CUDA events of the whole call
+    ([[_OWN + (3,)]] * 3, (0.7, "events", 3)),
+    # a median below the bound is traced again
+    ([[("mel_clip_kernel(float*)", 10.0, 40.0, 20)], [_OWN + (20,)]],
+     (0.1, "trace", 2)),
+    # and fails the run when no trace reads at or above it
+    ([[("mel_clip_kernel(float*)", 10.0, 40.0, 20)]] * 2 + [[_OWN + (3,)]],
+     (None, None, 3)),
+])
+def test_chip_smoke_kernel_ms_takes_the_median_of_the_traces_own_launches(
+        monkeypatch, traces, want):
+    """``chip_smoke.kernel_ms`` times a kernel that each call launches once
+    by the median of its launches' own records in a trace of 20 calls, so a
+    trace that lost records, or handed back records of launches made before
+    it, reads neither low nor high; a trace that holds too few or too many
+    records is taken again."""
+    import importlib.util
+    import types
+
+    from torch.autograd import DeviceType
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    taken = []
+
+    class FakeProfile:
+        def __init__(self, **kw):
+            self.records = traces[len(taken)]
+            taken.append(1)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def events(self):
+            return [types.SimpleNamespace(
+                name=name, time_range=types.SimpleNamespace(
+                    start=start, end=start + us),
+                device_type=(DeviceType.CPU if name.startswith("cuda")
+                             else DeviceType.CUDA))
+                for name, start, us, n in self.records for _ in range(n)]
+
+    monkeypatch.setattr(torch.profiler, "profile", FakeProfile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(smoke, "cuda_ms", lambda fn: 0.7)
+    want_ms, want_method, want_traces = want
+    if want_ms is None:
+        with pytest.raises(AssertionError, match="below its bound"):
+            smoke.kernel_ms(lambda: None, "mel_clip_kernel", 0.05)
+    else:
+        ms, method = smoke.kernel_ms(lambda: None, "mel_clip_kernel", 0.05)
+        assert (ms, method) == (pytest.approx(want_ms), want_method)
+    assert len(taken) == want_traces
