@@ -12,8 +12,9 @@ Phases (any failure exits non-zero and prints no final line):
    attention (B=8, H=16, T=1500, hd=64) in f32 and bf16, with K as it is and
    K transposed, at n_valid 1, 63, 64, 65, 1000 and 1500, at head dims 16,
    32 and 128 on a small B*H, and timed at T=1536 (aligned K^T rows); the
-   QK post-process (B=8, H=16, T=96, F=1500) at widths 3 and 7 with ragged
-   and edge lengths; the DTW wavefront and backtrace (bit-equal), at
+   QK post-process (B=8, H=16, T=96, F=1500) at widths 3, 7, 15, 17 and 31
+   (its median network) and 33 and 101 (rank selection) with ragged and
+   edge lengths; the DTW wavefront and backtrace (bit-equal), at
    B=16, N<=120, M=1500 and at the ``DTW_SHAPES`` edges on tied integer and
    random costs, with pad rows and walks cut at window edges, timed beside
    their chains' floor (one dependent shuffle or shared-memory load per
@@ -42,8 +43,17 @@ Phases (any failure exits non-zero and prints no final line):
    that some rows are flagged and some are not: the pipeline's own decode
    must give each flagged row the exact decode's tokens and each other row
    the int8 + bucket decode's. A tiny f32 model is also held against the
-   CPU path (plain versions). The DTW kernels are then held and timed on
-   the inputs the default main path gave them (its own shape).
+   CPU path (plain versions). Then the command-line surface at
+   Whisper-medium width, the model loader replaced by the smoke's model:
+   ``cli.infer_ali`` on the same corpus with the README recipe at median
+   width 17 (``--save_prediction``, re-scored by ``cli.eval_ali``) and with
+   ``--default_whisper_timing`` at width 33 (the QK post-process's rank
+   selection), and ``cli.probe_oracle`` on 8 utterances of 18-24 words
+   (its per-head DTW in 3 launches of 1024 rows, timed), each with exact
+   launch counts and jump frames equal to the NumPy DTW oracle; and
+   ``infer_ali --test_model`` on ``sample/`` on the card and on the CPU,
+   with equal words and boundaries. The DTW kernels are then held and timed
+   on the inputs the default main path gave them (its own shape).
 4. A JSON line of per-kernel numbers, then
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
@@ -53,8 +63,10 @@ It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import glob
 import json
 import os
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -201,16 +213,26 @@ def kernel_ms(fn, kernel: str, bound_ms: float, tries: int = 3,
     return cuda_ms(fn), "events"
 
 
-def library_ms(fn, bound_ms: float):
+def library_ms(fn, bound_ms: float, tries: int = 3):
     """(ms, method): the device time per call of a PyTorch call, all its
-    device work (:func:`device_ms`), ``"trace"``. Where the trace holds none,
-    or less than the bound (it missed some of the call's kernels), the
-    CUDA-event time of the whole call, ``"events"``."""
-    ms = device_ms(fn)
-    if ms is not None and ms >= bound_ms:
-        return ms, "trace"
-    log(f"  traced device time {ms} ms of the library call is missing or "
-        f"below the bound {bound_ms:.4g} ms: CUDA events")
+    device work (:func:`device_ms`), ``"trace"``. A trace that holds none,
+    or less than the bound (it missed some of the call's kernels), is taken
+    again, up to ``tries`` times, as :func:`kernel_ms` does; only when no
+    trace was usable, the CUDA-event time of the whole call (host time
+    included), ``"events"``."""
+    readings = []
+    for _ in range(tries):
+        ms = device_ms(fn)
+        if ms is not None and ms >= bound_ms:
+            if readings:
+                log(f"  library call traced at {ms:.4g} ms after "
+                    f"{len(readings)} unusable traces")
+            return ms, "trace"
+        readings.append(ms)
+        log(f"  traced device time {ms} ms of the library call is missing "
+            f"or below the bound {bound_ms:.4g} ms: tracing again")
+    log(f"  {tries} traces of the library call unusable ({readings}): CUDA "
+        f"events of the whole call")
     return cuda_ms(fn), "events"
 
 
@@ -227,9 +249,8 @@ def kernel_phase():
     import torch
     import torch.nn.functional as F
 
-    from whisper_char_alignment_tpu_torch.ops import (_lib, dtw_cuda,
-                                                      encoder_attn_cuda,
-                                                      qkpost_cuda)
+    from whisper_char_alignment_tpu_torch.ops import (dtw_cuda,
+                                                      encoder_attn_cuda)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -320,40 +341,7 @@ def kernel_phase():
         f"traced ms {aligned}")
     del q32, k32, v32, q, k, v, args
 
-    # -- QK post-process -----------------------------------------------------
-    b, h, t, f = 8, 16, 96, 1500
-    qk = torch.randn((b, h, t, f), generator=gen, device=dev) * 3.0
-    frame_len = torch.tensor([1, 3, 4, 2, 750, 1499, 1500, 333],
-                             dtype=torch.int32, device=dev)
-    token_len = torch.tensor([96, 1, 50, 95, 96, 10, 70, 33],
-                             dtype=torch.int32, device=dev)
-    worst = 0.0
-    for width in (3, 7):
-        out = qkpost_cuda.qk_postprocess(qk, frame_len, token_len, width)
-        ref = qkpost_cuda.qk_postprocess_plain(qk, frame_len, token_len, width)
-        torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        worst = max(worst, err)
-        check(err <= 1e-6, f"qkpost width {width}: max err {err:.3g}")
-        log(f"qkpost width={width}: max abs err {err:.3g} (tol 1e-6)")
-    nbytes = 2 * b * h * t * f * 4 + 2 * b * 4
-    ops = b * h * t * f * 8  # 3 compare-exchanges, scale, exp, sum, divide
-    bound = max(nbytes / HBM_BYTES_PER_S, ops / PEAK_F32) * 1e3
-    ms, method = kernel_ms(lambda: qkpost_cuda.qk_postprocess(
-        qk, frame_len, token_len, 3), "qkpost_kernel", bound)
-    plain_ms = cuda_ms(lambda: qkpost_cuda.qk_postprocess_plain(
-        qk, frame_len, token_len, 3), iters=5, warmup=1)
-    log(f"qkpost (8,16,96,1500) w=3: kernel {ms:.4f} ms ({method}), plain "
-        f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.0f} MB)")
-    rows["qkpost"] = dict(
-        name="qkpost", route="cuda",
-        source="whisper_char_alignment_tpu_torch/csrc/qkpost.cu",
-        replaces="whisper_char_alignment_tpu/ops/qkpost_pallas.py:111",
-        max_abs_err=worst, ms=ms, ms_method=method, plain_ms=plain_ms,
-        bound_ms=bound,
-        bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= ops / PEAK_F32
-        else "operations", library_ms=None)
-    del qk
+    rows.update(qkpost_rows(gen))
 
     # -- DTW -----------------------------------------------------------------
     dtw_edges(gen)
@@ -418,6 +406,82 @@ def kernel_phase():
 
     rows.update(cross_attn_rows(gen))
     rows.update(mel_rows(gen))
+    return rows
+
+
+# median widths the QK post-process kernel is held and timed at: the main
+# path's 3 and 7, the network's widest (15 before this width was carried,
+# 31 now) and a width just past it, then rank selection at 33 (its first
+# width) and 101
+QKPOST_WIDTHS = (3, 7, 15, 17, 31, 33, 101)
+
+
+def qkpost_bound(width: int, frame_len, token_len, shape):
+    """(bound ms, "bytes" or "operations") of the QK post-process at
+    ``width``: one read and one write of the (B, H, T, F) f32 logits, and
+    the median network's w (w - 1) / 2 compare-exchanges for every element
+    this run's lengths filter (rows < token_len, frames < frame_len, items
+    past the w//2 pass-through) plus 5 operations an element for the scale,
+    max, exp, sum and divide. Rank selection (w > 31) does more comparisons
+    than the network; the bound counts the network's."""
+    b, h, t, f = shape
+    nbytes = 2 * b * h * t * f * 4 + 2 * b * 4
+    fl = frame_len.long().cpu()
+    tl = token_len.long().cpu().clamp(max=t)
+    filtered = int((h * tl * fl * (fl > width // 2)).sum())
+    ops = filtered * width * (width - 1) // 2 + b * h * t * f * 5
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_F32
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations", nbytes, ops)
+
+
+def qkpost_rows(gen):
+    """The QK post-process kernel at (8, 16, 96, 1500), ragged and edge
+    lengths, at every ``QKPOST_WIDTHS`` width against its plain version,
+    each timed beside its bound: rows for width 3 (the smoke's main path),
+    17 (the CLI run's, on the network) and 33 (the CLI's default-timing
+    run's, on rank selection)."""
+    import torch
+
+    from whisper_char_alignment_tpu_torch.ops import qkpost_cuda
+
+    dev = torch.device("cuda")
+    shape = b, h, t, f = 8, 16, 96, 1500
+    qk = torch.randn(shape, generator=gen, device=dev) * 3.0
+    frame_len = torch.tensor([1, 3, 4, 2, 750, 1499, 1500, 333],
+                             dtype=torch.int32, device=dev)
+    token_len = torch.tensor([96, 1, 50, 95, 96, 10, 70, 33],
+                             dtype=torch.int32, device=dev)
+    rows = {}
+    for width in QKPOST_WIDTHS:
+        out = qkpost_cuda.qk_postprocess(qk, frame_len, token_len, width)
+        ref = qkpost_cuda.qk_postprocess_plain(qk, frame_len, token_len,
+                                               width)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        check(err <= 1e-6, f"qkpost width {width}: max err {err:.3g}")
+        del out, ref
+        bound, bound_by, nbytes, ops = qkpost_bound(width, frame_len,
+                                                    token_len, shape)
+        call = lambda: qkpost_cuda.qk_postprocess(  # noqa: E731
+            qk, frame_len, token_len, width)
+        ms, method = kernel_ms(call, "qkpost_kernel", bound)
+        plain_ms = cuda_ms(lambda: qkpost_cuda.qk_postprocess_plain(
+            qk, frame_len, token_len, width), iters=3, warmup=1)
+        path = ("network" if width <= qkpost_cuda.NET_WIDTH
+                else "rank selection")
+        log(f"qkpost (8,16,96,1500) w={width} ({path}): max abs err "
+            f"{err:.3g} (tol 1e-6); kernel {ms:.4f} ms ({method}), plain "
+            f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}; "
+            f"{nbytes / 1e6:.0f} MB, {ops / 1e9:.2f} G operations)")
+        name = {3: "qkpost", 17: "qkpost_w17", 33: "qkpost_rank"}.get(width)
+        if name:
+            rows[name] = dict(
+                name=name, route="cuda",
+                source="whisper_char_alignment_tpu_torch/csrc/qkpost.cu",
+                replaces="whisper_char_alignment_tpu/ops/qkpost_pallas.py:111",
+                max_abs_err=err, ms=ms, ms_method=method, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=bound_by, library_ms=None)
     return rows
 
 
@@ -908,7 +972,7 @@ def drive(label: str, pipe, dataset, expected, card: str):
     log(f"[{label}] warmup batch: {time.perf_counter() - t0:.2f} s")
 
     seen = new_seen()
-    pipe.stage_seconds.clear()
+    pipe.timers.reset()
     _lib.reset_launches()
     torch.cuda.synchronize()
     with spying(seen):
@@ -1055,6 +1119,261 @@ def guarded_phase(model, tok, dataset, card: str) -> None:
         f"two decodes differ in {differ} rows")
 
 
+@contextlib.contextmanager
+def patched(obj, **attrs):
+    """Set attributes of ``obj`` while the block runs; restore them after."""
+    saved = {k: getattr(obj, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(obj, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(obj, k, v)
+
+
+@contextlib.contextmanager
+def dtw_calls(calls: list):
+    """Keep, while the block runs, a copy of each call of the DTW kernels'
+    entry (``timing.dtw_jump_frames``): its costs, lengths and jump
+    frames."""
+    from whisper_char_alignment_tpu_torch.align import timing
+
+    jump = timing.dtw_jump_frames
+
+    def kept(x, n, m):
+        out = jump(x, n, m)
+        calls.append((x.clone(), n.clone(), m.clone(), out.clone()))
+        return out
+
+    with patched(timing, dtw_jump_frames=kept):
+        yield
+
+
+def hold_jump_frames(call, rows, label: str) -> int:
+    """The jump frames of ``rows`` of one DTW call against the NumPy DTW
+    oracle on each row's own costs (rows of a pad item, n < 1, are
+    skipped); returns the rows held."""
+    import numpy as np
+
+    from whisper_char_alignment_tpu_torch.ops.dtw import dtw_np
+
+    x, n, m, jump = call
+    held = 0
+    for r in rows:
+        nr, mr = int(n[r]), int(m[r])
+        if nr < 1:
+            continue
+        ti, tj = dtw_np(x[r, :nr, :mr].cpu().numpy())
+        first = np.pad(np.diff(ti), (1, 0), constant_values=1).astype(bool)
+        got = jump[r].cpu().numpy()
+        check(np.array_equal(got[:nr], tj[first])
+              and bool((got[nr:] == -1).all()),
+              f"{label} row {r}: jump frames differ from the NumPy DTW "
+              f"oracle")
+        held += 1
+    return held
+
+
+def cli_base_args(scp: str) -> list:
+    """The CLIs' flags for the smoke's medium runs: the README recipe's
+    units and scoring, bf16, batch 8, the ground-truth transcript and 32
+    decode steps."""
+    return ["--dataset", "TIMIT", "--scp", scp, "--model", "medium",
+            "--batch_size", str(BATCH), "--compute_dtype", "bfloat16",
+            "--use_gt_transcript", "--decode_sample_len", str(DECODE_LEN),
+            "--aligned_unit_type", "char", "--strict", "--tolerance", "0.05",
+            "--profile"]
+
+
+def cli_phase(model, tok, scp: str, n_utts: int, card: str) -> dict:
+    """``infer_ali`` at Whisper-medium width through ``cli.infer_ali.main``,
+    with the model loader replaced by the smoke's medium model, twice: the
+    README recipe at median width 17 (the network) with
+    ``--save_prediction``, then ``--default_whisper_timing`` at width 33
+    (rank selection). Each run's launch counts are set to 0 just before it
+    and must be exact after it; every batch's jump frames equal the NumPy
+    DTW oracle; ``eval_ali`` on the written pkl gives the CLI's own
+    precision, recall and F1. Returns each run's counts."""
+    import numpy as np
+    import torch
+
+    from whisper_char_alignment_tpu_torch.cli import (common, eval_ali,
+                                                      infer_ali)
+    from whisper_char_alignment_tpu_torch.ops import _lib
+
+    n_batches = -(-n_utts // BATCH)
+    runs = (("recipe w=17", "qkpost", ["--medfilt_width", "17", "--aggr",
+                                       "topk", "--topk", "10",
+                                       "--save_prediction"]),
+            ("default timing w=33", "qkpost_rank",
+             ["--default_whisper_timing", "--medfilt_width", "33"]))
+    made, pipeline = [], infer_ali.AlignmentPipeline
+
+    def keep_pipeline(*args, **kwargs):
+        made.append(pipeline(*args, **kwargs))
+        return made[-1]
+
+    out = {}
+    with patched(common, load_model_and_tokenizer=lambda args, device=None:
+                 (model, tok)), \
+            patched(infer_ali, AlignmentPipeline=keep_pipeline):
+        for label, qk_counter, extra in runs:
+            out_dir = tempfile.mkdtemp(prefix="cli_", dir=os.path.dirname(scp))
+            calls = []
+            _lib.reset_launches()
+            torch.cuda.synchronize()
+            with dtw_calls(calls):
+                t0 = time.perf_counter()
+                metrics = infer_ali.main(cli_base_args(scp) + extra
+                                         + ["--output_dir", out_dir])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            counts = _lib.launch_counts()
+            expect = dict.fromkeys(counts, 0)
+            expect.update(encoder_attn=model.dims.n_audio_layer * n_batches,
+                          dtw_trace=n_batches, dtw_backtrace=n_batches)
+            expect[qk_counter] = model.dims.n_text_layer * n_batches
+            log(f"[cli {label}] launch counts: {counts} (expected {expect})")
+            check(counts == expect,
+                  f"[cli {label}] launch counts differ from the path's")
+            check(len(calls) == n_batches, f"[cli {label}] {len(calls)} DTWs")
+            held = sum(hold_jump_frames(c, range(c[0].shape[0]),
+                                        f"[cli {label}] batch {i}")
+                       for i, c in enumerate(calls))
+            check(held == n_utts, f"[cli {label}] {held} rows held")
+            stages = {k: round(v, 4)
+                      for k, v in made[-1].stage_seconds.items()}
+            log(f"[cli {label}] on {card}: {n_utts} utterances in {wall:.3f} s"
+                f" ({n_utts / wall:.3f} utts/s, model load excluded); "
+                f"metrics {metrics}; stage seconds {json.dumps(stages)}; "
+                f"jump frames of all {held} utterances equal the NumPy DTW "
+                f"oracle")
+            if "--save_prediction" in extra:
+                (pkl,) = glob.glob(os.path.join(out_dir, "*-predictions.pkl"))
+                with open(pkl, "rb") as f:
+                    records = pickle.load(f)
+                check(len(records) == n_utts
+                      and all(np.isfinite(r["ends_hat"]).all()
+                              and len(r["predwords"]) >= 2
+                              for r in records.values()),
+                      f"[cli {label}] predictions pkl: {len(records)} records")
+                rescored = eval_ali.main(["--pred", pkl, "--tolerance", "0.05"])
+                check(all(rescored[k] == metrics[k]
+                          for k in ("precision", "recall", "f1")),
+                      f"[cli {label}] eval_ali {rescored} != the CLI's "
+                      f"{metrics}")
+                log(f"[cli {label}] eval_ali on the pkl: {rescored}, the "
+                    f"CLI's own precision, recall and F1")
+            out[qk_counter] = counts
+    return out
+
+
+def probe_phase(model, tok, card: str) -> dict:
+    """``probe_oracle`` at Whisper-medium width through
+    ``cli.probe_oracle.main`` on one batch of 8 synthetic utterances of
+    18-24 words over 8-10 s: exact launch counts (one capture, and the
+    per-head DTW of 8 utterances x 384 heads in 3 launches of 8 layers x 8
+    utterances x 16 heads = 1024 rows, frames cut to 512), the jump frames
+    of 32 sampled rows of each launch equal to the NumPy DTW oracle, and
+    both DTW kernels timed at that launch's shape. Returns the counts."""
+    import torch
+
+    from whisper_char_alignment_tpu_torch.cli import common, probe_oracle
+    from whisper_char_alignment_tpu_torch.data.synthetic import \
+        make_timit_corpus
+    from whisper_char_alignment_tpu_torch.ops import _lib, dtw_cuda
+
+    dims = model.dims
+    with tempfile.TemporaryDirectory(prefix="smoke_probe_",
+                                     dir=os.path.join(HERE, "build")) as d:
+        scp = make_timit_corpus(d, n_utts=BATCH, seconds=(8.0, 10.0),
+                                words_per_utt=(18, 24), seed=1)
+        argv = cli_base_args(scp) + ["--hit_within", "10", "--output_dir",
+                                     os.path.join(d, "out")]
+        calls = []
+        _lib.reset_launches()
+        torch.cuda.synchronize()
+        with patched(common, load_model_and_tokenizer=lambda args,
+                     device=None: (model, tok)), dtw_calls(calls):
+            t0 = time.perf_counter()
+            results = probe_oracle.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    counts = _lib.launch_counts()
+    heads = BATCH * dims.n_text_head  # rows of one layer
+    layers = max(1, probe_oracle.ROWS_PER_LAUNCH // heads)
+    n_launch = -(-dims.n_text_layer // layers)
+    expect = dict.fromkeys(counts, 0)
+    expect.update(encoder_attn=dims.n_audio_layer, qkpost=dims.n_text_layer,
+                  dtw_trace=n_launch, dtw_backtrace=n_launch)
+    log(f"[probe] launch counts: {counts} (expected {expect})")
+    check(counts == expect, "[probe] launch counts differ from the path's")
+    check(len(calls) == n_launch
+          and calls[0][0].shape[0] == heads * min(layers, dims.n_text_layer),
+          f"[probe] DTW launches {[tuple(c[0].shape) for c in calls]}")
+    gen = torch.Generator().manual_seed(0)
+    held = 0
+    for i, call in enumerate(calls):
+        sample = torch.randperm(call[0].shape[0], generator=gen)[:32]
+        held += hold_jump_frames(call, sample.tolist(), f"[probe] launch {i}")
+    x, n_len, m_len, _ = calls[0]
+    b, n, m = x.shape
+    tr_bound, bt_bound, _, _ = dtw_bounds(n_len, m_len, n, m)
+    ms_tr, method_tr = kernel_ms(lambda: dtw_cuda.dtw_trace(x),
+                                 "dtw_trace_kernel", tr_bound)
+    tr = dtw_cuda.dtw_trace(x)
+    ms_bt, method_bt = kernel_ms(
+        lambda: dtw_cuda.dtw_backtrace_jump(tr, n_len, m_len),
+        "dtw_backtrace_kernel", bt_bound)
+    walk = int((n_len.clamp(min=0) + m_len).max())
+    log(f"[probe] on {card}: {results} in {wall:.3f} s; {held} sampled rows "
+        f"of the {n_launch} DTW launches equal the NumPy DTW oracle; DTW at "
+        f"the probe's launch shape {tuple(x.shape)}: trace {ms_tr:.4f} ms "
+        f"({method_tr}, {ms_tr * 1e6 / (n + m - 1):.1f} ns per diagonal, "
+        f"bound {tr_bound:.5f} ms), backtrace {ms_bt:.4f} ms ({method_bt}, "
+        f"{ms_bt * 1e6 / max(walk, 1):.1f} ns per step of the longest walk "
+        f"of {walk}, bound {bt_bound:.6f} ms)")
+    return counts
+
+
+def tiny_cli_phase() -> str:
+    """``infer_ali --test_model`` on ``sample/test.scp`` on the card and
+    with ``WCA_PLATFORM=cpu``: the words and boundaries of the two
+    predictions pkls are equal."""
+    import numpy as np
+
+    from whisper_char_alignment_tpu_torch.cli import infer_ali
+
+    argv = ["--scp", "sample/test.scp", "--test_model", "--save_prediction",
+            "--use_gt_transcript", "--decode_sample_len", "8", "--aggr",
+            "topk", "--topk", "2", "--aligned_unit_type", "char", "--strict",
+            "--medfilt_width", "17"]
+    records = {}
+    cwd = os.getcwd()
+    os.chdir(HERE)  # the scp names sample/test.wav
+    try:
+        with tempfile.TemporaryDirectory(
+                prefix="smoke_tiny_", dir=os.path.join(HERE, "build")) as d:
+            for platform in ("gpu", "cpu"):
+                out_dir = os.path.join(d, platform)
+                with environ(WCA_PLATFORM=platform):
+                    infer_ali.main(argv + ["--output_dir", out_dir])
+                (pkl,) = glob.glob(os.path.join(out_dir, "*-predictions.pkl"))
+                with open(pkl, "rb") as f:
+                    records[platform] = pickle.load(f)
+    finally:
+        os.chdir(cwd)
+    card, cpu = records["gpu"], records["cpu"]
+    check(sorted(card) == sorted(cpu) == [0], "[tiny cli] records differ")
+    for key in ("predwords", "starts_hat", "ends_hat"):
+        check(np.array_equal(card[0][key], cpu[0][key]),
+              f"[tiny cli] {key}: card {card[0][key]} != CPU {cpu[0][key]}")
+    return (f"words {card[0]['predwords']}, ends "
+            f"{np.asarray(card[0]['ends_hat']).tolist()} equal on the card "
+            f"and the CPU")
+
+
 def main_path_phase(card: str):
     import torch
 
@@ -1129,7 +1448,10 @@ def main_path_phase(card: str):
                   "[int8+bucket] the capture pass reused int8/bucketed K/V")
             cross_mode_phase(quant_pipe, dataset, card)
             guarded_phase(model, tok, dataset, card)
-    return counts, counts2, seen["dtw_inputs"]
+        cli_counts = cli_phase(model, tok, scp, len(dataset), card)
+    cli_counts["probe"] = probe_phase(model, tok, card)
+    log(f"tiny model CLI, card vs CPU: {tiny_cli_phase()}")
+    return counts, counts2, cli_counts, seen["dtw_inputs"]
 
 
 def main() -> int:
@@ -1171,16 +1493,24 @@ def main() -> int:
             log(f"  {line.strip()}")
 
     rows = kernel_phase()
-    counts, counts2, dtw_inputs = main_path_phase(card)
+    counts, counts2, cli_counts, dtw_inputs = main_path_phase(card)
     check(dtw_inputs is not None, "the default main path ran no DTW")
     dtw_main_shape(dtw_inputs)
     # each row's launches come from the run whose path holds its kernel: the
-    # default run, or the int8 + bucket run for the mel and cross-attention
-    # kernels; row 5 is row 3a's kernel
+    # default run, the int8 + bucket run for the mel and cross-attention
+    # kernels, the CLI's width-17 run for the QK post-process's network at
+    # 17 and its default-timing run (width 33) for rank selection; row 5 is
+    # row 3a's kernel
     for name, row in rows.items():
-        run = counts2 if name.startswith(("mel", "cross_attn")) else counts
-        row["launches"] = run["dtw_trace" if name == "dtw_trace_batch"
-                              else name]
+        run, counter = counts, name
+        if name.startswith(("mel", "cross_attn")):
+            run = counts2
+        elif name == "dtw_trace_batch":
+            counter = "dtw_trace"
+        elif name in ("qkpost_w17", "qkpost_rank"):
+            counter = "qkpost" if name == "qkpost_w17" else name
+            run = cli_counts[counter]
+        row["launches"] = run[counter]
     # ms_method: "trace" (the kernel's traced device time) or "events" (the
     # whole call by CUDA events, where three traces held no record of it)
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -235,7 +235,8 @@ def test_mel_kernel_refuses_more_than_128_mels(cuda):
         mel_cuda.log_mel(torch.zeros((1, 4000), device=cuda), n_mels=129)
 
 
-@pytest.mark.parametrize("width", [1, 3, 7, 15])
+# the median network's widths, then rank selection's (any odd width above)
+@pytest.mark.parametrize("width", [1, 3, 7, 15, 17, 31, 33, 101])
 def test_qkpost_kernel(cuda, width):
     rng = np.random.default_rng(width)
     qk = torch.from_numpy(rng.normal(0, 2, (4, 2, 9, 300)).astype(
@@ -245,6 +246,25 @@ def test_qkpost_kernel(cuda, width):
     tl = torch.tensor([9, 1, 4, 8], dtype=torch.int32, device=cuda)
     got = qkpost_cuda.qk_postprocess(qk, fl, tl, width, 0.5)
     want = qkpost_cuda.qk_postprocess_plain(qk, fl, tl, width, 0.5)
+    assert (got - want).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("width", [3, 31, 33, 101])
+def test_qkpost_kernel_on_tied_logits(cuda, width):
+    """Logits of three values: most windows hold ties at their median, and
+    items at frame_len w/2 (passed through) and w/2 + 1 (filtered)."""
+    rng = np.random.default_rng(100 + width)
+    qk = torch.from_numpy(rng.integers(-1, 2, (4, 2, 5, 257)).astype(
+        np.float32)).to(cuda)
+    fl = torch.tensor([width // 2, width // 2 + 1, 200, 257],
+                      dtype=torch.int32, device=cuda)
+    tl = torch.tensor([5, 5, 3, 5], dtype=torch.int32, device=cuda)
+    name = "qkpost" if width <= qkpost_cuda.NET_WIDTH else "qkpost_rank"
+    before = _lib.launch_counts()
+    got = qkpost_cuda.qk_postprocess(qk, fl, tl, width)
+    after = _lib.launch_counts()
+    assert after.pop(name) == before.pop(name) + 1 and after == before
+    want = qkpost_cuda.qk_postprocess_plain(qk, fl, tl, width)
     assert (got - want).abs().max().item() <= 1e-6
 
 

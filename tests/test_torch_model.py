@@ -194,8 +194,11 @@ def test_openai_checkpoint_loads_to_the_same_tensors(models, tmp_path):
 
 
 def test_other_checkpoint_formats_are_refused(tmp_path):
+    # an Orbax checkpoint directory: read by the JAX package only
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tconvert.load_checkpoint(str(tmp_path / "x.safetensors"))
+        tconvert.load_checkpoint(str(tmp_path))
+    with pytest.raises(ValueError, match="unsupported"):
+        tconvert.load_checkpoint(str(tmp_path / "x.bin"))
 
 
 # ---------------------------------------------------------------------------

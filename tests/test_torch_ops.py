@@ -125,7 +125,7 @@ def test_qk_postprocess_plain_matches_jax(width):
         assert not got[i, :, n:].any()
 
 
-@pytest.mark.parametrize("width", [2, 0, _lib.QKPOST_MAX_WIDTH + 2])
+@pytest.mark.parametrize("width", [2, 0, -1])
 def test_qk_postprocess_rejects_widths(width):
     qk = torch.zeros(1, 1, 2, 8)
     ones = torch.ones(1, dtype=torch.int32)

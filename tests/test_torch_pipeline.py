@@ -118,7 +118,7 @@ def test_test_model_is_seeded_and_refuses_a_missing_gpu(monkeypatch):
 
 
 @pytest.mark.parametrize("override", [
-    dict(encoder_int8=True), dict(default_whisper_timing=True),
+    dict(encoder_int8=True), dict(encoder_int8=True, decode_kv_int8=True),
     dict(data_parallel=2), dict(tensor_parallel=2), "mesh"])
 def test_unported_pipeline_options_raise(setup, override):
     _, model, _ = setup
@@ -158,14 +158,15 @@ def test_wire_is_int16_for_pcm_sources(setup):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    mods = ["api", "runner", "align.timing", "audio.mel", "audio.resample",
-            "audio.wav", "config", "constants", "data.dataset",
-            "data.synthetic", "models.convert", "models.decoding",
-            "models.whisper", "ops.cross_attn_cuda", "ops.dtw", "ops.dtw_cuda",
-            "ops.encoder_attn_cuda", "ops.medfilt", "ops.mel_cuda",
-            "ops.qkpost_cuda", "ops._lib", "text.bpe",
+    mods = ["api", "runner", "align.metrics", "align.timing", "audio.mel",
+            "audio.resample", "audio.wav", "cli.common", "cli.eval_ali",
+            "cli.infer_ali", "cli.probe_oracle", "config", "constants",
+            "data.dataset", "data.synthetic", "models.convert",
+            "models.decoding", "models.whisper", "ops.cross_attn_cuda",
+            "ops.dtw", "ops.dtw_cuda", "ops.encoder_attn_cuda", "ops.medfilt",
+            "ops.mel_cuda", "ops.qkpost_cuda", "ops._lib", "text.bpe",
             "text.numwords", "text.retokenize", "text.tokenizer",
-            "utils.device", "utils.unported"]
+            "utils.device", "utils.profiling", "utils.unported", "viz.plot"]
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -328,4 +329,40 @@ def test_chip_smoke_kernel_ms_takes_the_median_of_the_traces_own_launches(
     else:
         ms, method = smoke.kernel_ms(lambda: None, "mel_clip_kernel", 0.05)
         assert (ms, method) == (pytest.approx(want_ms), want_method)
+    assert len(taken) == want_traces
+
+
+@pytest.mark.parametrize("traces,want", [
+    ([0.1], (0.1, "trace", 1)),
+    # an empty trace, then a usable one
+    ([None, 0.1], (0.1, "trace", 2)),
+    # two traces below the bound (they missed some of the call's kernels)
+    ([0.02, 0.03, 0.1], (0.1, "trace", 3)),
+    # no usable trace in three: CUDA events of the whole call
+    ([None, 0.02, None], (0.7, "events", 3)),
+])
+def test_chip_smoke_library_ms_retakes_unusable_traces(monkeypatch, traces,
+                                                        want):
+    """``chip_smoke.library_ms`` times a library yardstick (SDPA, the
+    ``torch.stft`` frontend) by its traced device time, as ``kernel_ms``
+    times a kernel: a trace that holds no device time or reads below the
+    bound is taken again, up to three times, before CUDA events of the
+    whole call stand in; the method says which gave the figure."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    taken = []
+
+    def fake_device_ms(fn):
+        taken.append(1)
+        return traces[len(taken) - 1]
+
+    monkeypatch.setattr(smoke, "device_ms", fake_device_ms)
+    monkeypatch.setattr(smoke, "cuda_ms", lambda fn: 0.7)
+    want_ms, want_method, want_traces = want
+    ms, method = smoke.library_ms(lambda: None, 0.05)
+    assert (ms, method) == (pytest.approx(want_ms), want_method)
     assert len(taken) == want_traces

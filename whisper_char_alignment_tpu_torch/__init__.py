@@ -9,7 +9,9 @@ same function beside its wrapper (``ops/*_cuda.py``).
 
 The package imports ``torch`` and never ``jax``, and nothing of the JAX
 package: the jax-free host modules it needs are copies. Entry points run on
-``cuda`` unless the caller passes ``device="cpu"``.
+``cuda`` unless the caller passes ``device="cpu"``; the command-line tools
+(``cli/infer_ali``, ``cli/eval_ali``, ``cli/probe_oracle``) take the JAX
+CLIs' flags and run on the CPU with ``WCA_PLATFORM=cpu``.
 """
 
 from . import constants

@@ -227,3 +227,87 @@ def force_align(ws, text_tokens, tokenizer, aligned_unit_type="subword",
             (float(s[li, hi]), (int(li), int(hi)), f"sample_layer{li}_head{hi}")
             for li, hi in zip(l_sel, h_sel)]
     return words, start_times, end_times, matrix_np, scores_list
+
+
+def filter_attention(attns, topk=20, w_colnorm=1, w_rownorm=1, w_coverage=0):
+    """Reference-compatible head filter for one utterance (JAX
+    ``align/timing.py:351-367``, reference timing.py:13-43): attns (layers,
+    heads, tokens, frames) -> (selected maps list, scores list ascending)."""
+    a = torch.as_tensor(attns)[:, None]  # (L, 1, H, T, F)
+    f = a.shape[-1]
+    frame_len = torch.tensor([f], dtype=torch.int32, device=a.device)
+    scores = head_scores(a, frame_len, w_colnorm, w_rownorm,
+                         w_coverage)[0].cpu().numpy()
+    entries = []
+    for l in range(scores.shape[0]):
+        for h in range(scores.shape[1]):
+            entries.append((float(scores[l, h]), (l, h),
+                            f"sample_layer{l}_head{h}"))
+    scores_sorted = sorted(entries)[-topk:]
+    attns_np = a[:, 0].cpu().numpy()
+    selected = [attns_np[l, h][None] for _, (l, h), _ in scores_sorted]
+    return selected, scores_sorted
+
+
+# ---------------------------------------------------------------------------
+# Baseline path (reference: default_find_alignment, timing.py:116-186)
+# ---------------------------------------------------------------------------
+
+def _znorm_mean_heads(sel_attn: torch.Tensor,
+                      token_len: torch.Tensor) -> torch.Tensor:
+    """Z-normalize each selected head's map over the token axis (masked,
+    biased std, no epsilon: reference timing.py:160-161), then average the
+    heads. sel_attn (B, n_sel, T, F) f32 -> (B, T, F). The same divisions as
+    JAX ``align/timing.py:374-388``, so a column whose valid rows are all
+    equal gives 0/0 there as here."""
+    t = sel_attn.shape[-2]
+    token_len = token_len.to(sel_attn.device)
+    token_ok = (torch.arange(t, device=sel_attn.device)[None, None, :, None]
+                < token_len[:, None, None, None])  # (B, 1, T, 1)
+    n = token_len.float()[:, None, None, None]
+    zero = torch.zeros((), device=sel_attn.device)
+    s = torch.where(token_ok, sel_attn, zero)
+    mean = s.sum(dim=-2, keepdim=True) / n
+    var = torch.where(token_ok, (sel_attn - mean) ** 2,
+                      zero).sum(dim=-2, keepdim=True) / n
+    z = (sel_attn - mean) / torch.sqrt(var + 0.0)
+    z = torch.where(token_ok, z, zero)
+    return z.mean(dim=1)
+
+
+def default_find_alignment_batch(model, mel, tokens: torch.Tensor,
+                                 token_len: torch.Tensor,
+                                 frame_len: torch.Tensor, alignment_heads,
+                                 eot: int, medfilt_width=7, qk_scale=1.0,
+                                 sot_len=3, xa=None, cross_kv=None,
+                                 device=None):
+    """Whisper's built-in timing path, batched (JAX ``align/timing.py:
+    391-423``, reference timing.py:116-186): the capture of
+    :func:`get_attentions` (QK post-process kernel per layer), only the
+    hand-picked alignment heads, z-normalized per token and averaged, then
+    the DTW kernels; also the per-token text probabilities from the
+    teacher-forced logits.
+
+    Returns (jump_frames (B, N+1), text_token_probs (B, T - sot_len), matrix
+    (B, T, F))."""
+    attn, logits = get_attentions(model, mel, tokens, token_len, frame_len,
+                                  medfilt_width=medfilt_width,
+                                  qk_scale=qk_scale, return_logits=True,
+                                  xa=xa, cross_kv=cross_kv, device=device)
+    heads = torch.as_tensor(alignment_heads, dtype=torch.long,
+                            device=attn.device).reshape(-1, 2)
+    sel = attn[heads[:, 0], :, heads[:, 1]]  # (n_sel, B, T, F)
+    matrix = _znorm_mean_heads(sel.permute(1, 0, 2, 3).float(), token_len)
+    jump_frames = matrix_to_jump_frames(matrix, token_len, frame_len, sot_len)
+
+    # per-token probabilities: softmax over the non-special vocab slice
+    # [:eot] (reference timing.py:147-150); row sot_len + i predicts text
+    # token i (the token at position sot_len + 1 + i)
+    probs = torch.softmax(logits[..., :eot].float(), dim=-1)
+    pred_rows = probs[:, sot_len:, :]
+    next_tokens = tokens.to(probs.device)[:, sot_len + 1:].long()
+    pad = pred_rows.shape[1] - next_tokens.shape[1]
+    next_tokens = torch.nn.functional.pad(next_tokens, (0, pad))
+    next_tokens = next_tokens.clamp(0, eot - 1)  # pad/eot rows are unused
+    token_probs = torch.gather(pred_rows, -1, next_tokens[..., None])[..., 0]
+    return jump_frames, token_probs, matrix

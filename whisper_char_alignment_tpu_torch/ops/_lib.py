@@ -38,12 +38,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# widest median window the QK post-process kernel is instantiated for
-# (QK_MAX_WIDTH in csrc/qkpost.cu)
-QKPOST_MAX_WIDTH = 15
-
 LAUNCHES: Dict[str, int] = {
-    "encoder_attn": 0, "encoder_attn_kt": 0, "qkpost": 0, "dtw_trace": 0,
+    "encoder_attn": 0, "encoder_attn_kt": 0, "qkpost": 0, "qkpost_rank": 0,
+    "dtw_trace": 0,
     "dtw_backtrace": 0, "cross_attn_int8": 0, "cross_attn": 0, "mel": 0,
     "mel_clip": 0}
 

@@ -15,6 +15,11 @@ import torch
 from . import _lib
 from .medfilt import median_filter_masked
 
+# widest median the kernel takes with its network (kMaxNetWidth in
+# csrc/qkpost.cu); wider odd widths take rank selection, whose launches are
+# counted as "qkpost_rank"
+NET_WIDTH = 31
+
 
 def qk_postprocess_plain(qk: torch.Tensor, frame_len: torch.Tensor,
                          token_len: torch.Tensor, width: int,
@@ -42,15 +47,12 @@ def qk_postprocess(qk: torch.Tensor, frame_len: torch.Tensor,
     CUDA tensors, the plain version for CPU tensors.
 
     qk (B, H, T, F) float32 contiguous; frame_len, token_len (B,) int32 on
-    the same device, frame_len in [1, F]; width odd, at most
-    ``QKPOST_MAX_WIDTH``."""
+    the same device, frame_len in [1, F]; width any odd positive number (the
+    kernel's median network up to ``NET_WIDTH``, rank selection above)."""
     if qk.ndim != 4:
         raise ValueError(f"qk must be (B, H, T, F), got {tuple(qk.shape)}")
     if width <= 0 or width % 2 != 1:
         raise ValueError(f"median width must be odd and positive, got {width}")
-    if width > _lib.QKPOST_MAX_WIDTH:
-        raise ValueError(f"median width {width} is above the kernel's cap "
-                         f"{_lib.QKPOST_MAX_WIDTH}")
     b, h, t, f = qk.shape
     for name, v in (("frame_len", frame_len), ("token_len", token_len)):
         if v.shape != (b,):
@@ -66,7 +68,7 @@ def qk_postprocess(qk: torch.Tensor, frame_len: torch.Tensor,
     token_len = token_len.contiguous()
     out = torch.empty_like(qk)
     lib = _lib.library()
-    _lib.count("qkpost")
+    _lib.count("qkpost" if width <= NET_WIDTH else "qkpost_rank")
     rc = lib.wca_qkpost(qk.data_ptr(), out.data_ptr(), frame_len.data_ptr(),
                         token_len.data_ptr(), b, h, t, f, width,
                         float(qk_scale), _lib.stream_of(qk))

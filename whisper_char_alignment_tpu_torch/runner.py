@@ -3,24 +3,23 @@
 One batch runs: int16/f32 wire -> log-mel on the GPU, the encoder, the greedy
 KV-cached decode, char re-tokenization on the host, one teacher-forced
 capture (each decoder layer's cross-attention through the QK post-process
-kernel) with head selection, aggregation and DTW, then word times on the
-host.
+kernel) with head selection, aggregation and DTW (or, with
+``default_whisper_timing``, Whisper's own alignment heads, z-normalized, and
+per-word probabilities), then word times on the host.
 
 The JAX package's software pipeline (a background wire-prep thread and
 ``pipeline_depth`` batches in flight) hides host<->TPU transfers; here the
 stages run in a plain loop, one batch after the other. Results and their
-order are the same. Each stage's time is recorded in ``stage_seconds`` (the
-device is synchronised at the end of a stage, so the split is exact).
+order are the same. Each stage's time is recorded in ``timers``
+(``utils/profiling.StageTimers``; the device is synchronised at the end of a
+stage, so the split is exact); ``stage_seconds`` is its seconds by stage.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import os
-import time
-from collections import defaultdict
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -28,11 +27,12 @@ import torch
 from . import constants
 from .align import timing
 from .audio.mel import wire_to_mel
-from .config import AlignConfig
+from .config import AlignConfig, get_alignment_heads
 from .data.dataset import Utterance, batch_iter
 from .models import decoding, whisper as wmodel
 from .text import retokenize
 from .utils.device import resolve_device
+from .utils.profiling import StageTimers
 from .utils.unported import not_ported
 
 
@@ -109,8 +109,6 @@ def _utt_wire_i16(u: Utterance):
 def _reject_unported(cfg: AlignConfig) -> None:
     if cfg.encoder_int8:
         raise not_ported("encoder_int8", "quantized")
-    if cfg.default_whisper_timing:
-        raise not_ported("default_whisper_timing", "default_timing")
     if cfg.data_parallel > 1 or cfg.tensor_parallel > 1:
         raise not_ported("data_parallel/tensor_parallel above 1", "parallel")
 
@@ -139,10 +137,21 @@ class AlignmentPipeline:
         # the compute-dtype copy every stage uses; the caller's module stays
         self.model = wmodel.cast_params(model, self.compute_dtype, self.device)
         self.sot_len = len(tokenizer.sot_sequence)
+        self.alignment_heads = get_alignment_heads(cfg.model, self.dims)
+        if cfg.default_whisper_timing and not all(
+                0 <= l < self.dims.n_text_layer
+                and 0 <= h < self.dims.n_text_head
+                for l, h in self.alignment_heads):
+            # the JAX package's gather clamps such indices without a word
+            raise ValueError(
+                f"the alignment heads of model {cfg.model!r} "
+                f"({self.alignment_heads}) do not fit a decoder of "
+                f"{self.dims.n_text_layer} layers x {self.dims.n_text_head} "
+                "heads: name the checkpoint's model size")
         self.options = decoding.DecodingOptions(
             language=tokenizer.language or "en",
             sample_len=cfg.decode_sample_len or None)
-        self.stage_seconds = defaultdict(float)
+        self.timers = StageTimers(self.device)
         # per-utterance min top1-top2 logit margins of the aligned batches,
         # filled only when a guard tracked them (flag_rate)
         self.min_margins: List[float] = []
@@ -166,15 +175,10 @@ class AlignmentPipeline:
             return None
         return float(np.mean(np.asarray(self.min_margins) < guard))
 
-    @contextlib.contextmanager
-    def _stage(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            self.stage_seconds[name] += time.perf_counter() - t0
+    @property
+    def stage_seconds(self) -> Dict[str, float]:
+        """Seconds by stage name (``timers.totals``)."""
+        return self.timers.totals
 
     # -- stages ---------------------------------------------------------------
 
@@ -200,14 +204,15 @@ class AlignmentPipeline:
 
     def _transcribe(self, utts: Sequence[Utterance]) -> dict:
         """Mel, encoder and greedy decode for one batch."""
-        with self._stage("wire prep"):
+        n = len(utts)
+        with self.timers.stage("wire prep", n):
             wire = torch.from_numpy(self._prep_wire(utts)).to(self.device)
         b_pad = wire.shape[0]
         n_samples = 2 * self.dims.n_audio_ctx * constants.HOP_LENGTH
-        with self._stage("mel"):
+        with self.timers.stage("mel", n):
             mel = wire_to_mel(wire, self.dims.n_mels, total_samples=n_samples,
                               compute_dtype=self.compute_dtype)
-        with self._stage("encoder"):
+        with self.timers.stage("encoder", n):
             xa = wmodel.encode_audio(self.model, mel,
                                      device=self.device.type)
         cfg = self.cfg
@@ -228,7 +233,7 @@ class AlignmentPipeline:
                     and _cross_kv_bytes(self.dims, b_pad, self.compute_dtype)
                     <= int(float(os.environ.get("WCA_REUSE_KV_MAX_BYTES",
                                                 8e9))))
-        with self._stage("decode"):
+        with self.timers.stage("decode", n):
             results, xa, cross_kv = decoding.decode(
                 self.model, self.tokenizer, mel, self.options,
                 return_cross_kv=True, xa=xa, device=self.device.type,
@@ -262,7 +267,7 @@ class AlignmentPipeline:
                                 for r in tp["results"][:len(utts)]
                                 if np.isfinite(r.min_margin))
 
-        with self._stage("retokenize"):
+        with self.timers.stage("retokenize", len(utts)):
             prepared = []
             for u, transcription in zip(utts, transcripts):
                 text_norm = retokenize.remove_punctuation(u.text)
@@ -284,7 +289,7 @@ class AlignmentPipeline:
                                  int(max_frames), skip))
 
         live = [p for p in prepared if not p[6]]
-        jump_frames = matrix_np = sel = None
+        jump_frames = matrix_np = sel = token_probs = None
         if live:
             b_pad = max(self.cfg.batch_size, len(live))
             t_max = max(len(p[4]) for p in live)
@@ -305,23 +310,39 @@ class AlignmentPipeline:
                        else xa[torch.from_numpy(xa_idx).to(dev).long()])
             token_len_t = torch.from_numpy(token_len).to(dev)
             frame_len_t = torch.from_numpy(frame_len).to(dev)
-            with self._stage("capture"):
-                attn, _ = timing.get_attentions(
-                    self.model, None, torch.from_numpy(tokens_arr).to(dev),
-                    token_len_t, frame_len_t,
-                    medfilt_width=cfg.medfilt_width, qk_scale=cfg.qk_scale,
-                    return_logits=False, xa=xa_live, cross_kv=cross_kv,
-                    device=dev.type)
-            with self._stage("align"):
-                jump_dev, matrix_dev, scores = timing.force_align_batch(
-                    attn, token_len_t, frame_len_t, self.sot_len, cfg.aggr,
-                    cfg.topk, cfg.w_colnorm, cfg.w_rownorm, cfg.w_coverage)
-                del attn
-                jump_frames = jump_dev.cpu().numpy()
-                if return_matrix:
-                    matrix_np = matrix_dev.cpu().numpy()
-                if scores is not None:
-                    sel = (scores[1].cpu().numpy(), scores[2].cpu().numpy())
+            tokens_t = torch.from_numpy(tokens_arr).to(dev)
+            if cfg.default_whisper_timing:
+                with self.timers.stage("capture+align", len(live)):
+                    jump_dev, probs_dev, matrix_dev = \
+                        timing.default_find_alignment_batch(
+                            self.model, None, tokens_t, token_len_t,
+                            frame_len_t, self.alignment_heads, eot=tok.eot,
+                            medfilt_width=cfg.medfilt_width,
+                            qk_scale=cfg.qk_scale, sot_len=self.sot_len,
+                            xa=xa_live, cross_kv=cross_kv, device=dev.type)
+                    jump_frames = jump_dev.cpu().numpy()
+                    token_probs = probs_dev.cpu().numpy()
+                    if return_matrix:
+                        matrix_np = matrix_dev.cpu().numpy()
+            else:
+                with self.timers.stage("capture", len(live)):
+                    attn, _ = timing.get_attentions(
+                        self.model, None, tokens_t, token_len_t, frame_len_t,
+                        medfilt_width=cfg.medfilt_width,
+                        qk_scale=cfg.qk_scale, return_logits=False,
+                        xa=xa_live, cross_kv=cross_kv, device=dev.type)
+                with self.timers.stage("align", len(live)):
+                    jump_dev, matrix_dev, scores = timing.force_align_batch(
+                        attn, token_len_t, frame_len_t, self.sot_len,
+                        cfg.aggr, cfg.topk, cfg.w_colnorm, cfg.w_rownorm,
+                        cfg.w_coverage)
+                    del attn
+                    jump_frames = jump_dev.cpu().numpy()
+                    if return_matrix:
+                        matrix_np = matrix_dev.cpu().numpy()
+                    if scores is not None:
+                        sel = (scores[1].cpu().numpy(),
+                               scores[2].cpu().numpy())
 
         out: List[UttAlignment] = []
         # device rows follow `live` (prepared minus skips, order kept): index
@@ -337,8 +358,16 @@ class AlignmentPipeline:
                     skipped=True))
                 continue
             live_i += 1
-            words, _, wb = timing.words_and_boundaries(
-                text_tokens, tok, cfg.aligned_unit_type)
+            if cfg.default_whisper_timing:
+                # the baseline path always groups with the tokenizer's own
+                # word splitter (reference timing.py:167)
+                words, word_tokens = tok.split_to_word_tokens(
+                    list(text_tokens) + [tok.eot])
+                wb = (None if len(word_tokens) <= 1 else np.pad(
+                    np.cumsum([len(t) for t in word_tokens[:-1]]), (1, 0)))
+            else:
+                words, _, wb = timing.words_and_boundaries(
+                    text_tokens, tok, cfg.aligned_unit_type)
             if wb is None:
                 out.append(UttAlignment(
                     fid=u.fid, words=[], start_times=np.array([]),
@@ -347,6 +376,11 @@ class AlignmentPipeline:
                 continue
             jf = jump_frames[live_i][:len(text_tokens) + 1]
             starts, ends = timing.jump_frames_to_times(jf, wb)
+            word_probs = None
+            if token_probs is not None:
+                tp_row = token_probs[live_i][:len(text_tokens)]
+                word_probs = [float(np.mean(tp_row[i:j]))
+                              for i, j in zip(wb[:-1], wb[1:])]
             m = None
             if matrix_np is not None:
                 m = matrix_np[live_i][self.sot_len:len(tokens) - 1,
@@ -356,7 +390,8 @@ class AlignmentPipeline:
                 transcription=tr_norm, text=text_norm, starts=u.starts,
                 ends=u.ends, matrix=m,
                 scores=(None if sel is None
-                        else (sel[0][live_i], sel[1][live_i]))))
+                        else (sel[0][live_i], sel[1][live_i])),
+                word_probabilities=word_probs))
         return out
 
     def run_dataset(self, dataset, progress: bool = True):

@@ -7,10 +7,8 @@ lacks is refused loudly and never silently ignored.
 from __future__ import annotations
 
 ROADMAP_ITEMS = {
-    "checkpoints": "ROADMAP.md queue 1, item 2 (checkpoint formats)",
     "decoding": "ROADMAP.md queue 1, item 4 (decoding modes)",
     "quantized": "ROADMAP.md queue 1, item 7 (int8 encoder)",
-    "default_timing": "ROADMAP.md queue 1, item 8 (Whisper's default timing)",
     "parallel": "ROADMAP.md queue 1, item 9 (multi-GPU)",
 }
 
