@@ -54,6 +54,16 @@ Phases (any failure exits non-zero and prints no final line):
    ``infer_ali --test_model`` on ``sample/`` on the card and on the CPU,
    with equal words and boundaries. The DTW kernels are then held and timed
    on the inputs the default main path gave them (its own shape).
+   The decode runs as a replayed CUDA graph (``models/decode_graph.py``):
+   the steps the main path ran are read from the graph runner's replay
+   record, so the cross-attention kernel's launches are layers x (replayed
+   + warm-up steps). Each decode mode of the main path (float, int8 + bucket
+   through the kernel and through ``mxu``, the guarded pair) is held bit for
+   bit against the eager loop on the card, with its decode time graphed and
+   eager, the device-busy share of each from a trace, and one step's time
+   against the step's byte floor; then ``run_dataset`` at
+   ``pipeline_depth`` 1 and 2 gives the same results in the same order,
+   with utts/s and the busy share of each.
 4. A JSON line of per-kernel numbers, then
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
@@ -893,24 +903,35 @@ def spying(seen: dict):
     """Count, while the block runs, the decode steps by the kind of their
     cross K/V (int8 or float) and the frames they span, and the capture
     passes that reuse the decode loop's K/V, keep each batch's decode
-    results and a copy of the first batch's DTW inputs: the four module
-    functions the runner reaches are wrapped and restored after."""
+    results (a ``DecodeFuture`` until read: :func:`results_of`) and a copy
+    of the first batch's DTW inputs: the four module functions the runner
+    reaches are wrapped and restored after. A replayed CUDA graph calls no
+    Python, so the steps are read from the graph runner's replay record
+    around each graphed loop: the steps its replays ran plus the warm-up
+    step of a graph captured in the block (each launches its kernels)."""
     from whisper_char_alignment_tpu_torch.align import timing
-    from whisper_char_alignment_tpu_torch.models import decoding
-    from whisper_char_alignment_tpu_torch.models import whisper as wm
+    from whisper_char_alignment_tpu_torch.models import decode_graph, decoding
 
-    step, attentions, decode, jump = (wm.decode_step, timing.get_attentions,
-                                      decoding.decode, timing.dtw_jump_frames)
+    loop, attentions, decode, jump = (decode_graph.graphed_loop,
+                                      timing.get_attentions, decoding.decode,
+                                      timing.dtw_jump_frames)
 
-    def counted_step(model, tokens, pos, cache, cross_kv, cross_mode=None):
-        ck = cross_kv[0]
+    def counted_loop(*args, **kwargs):
+        before = decode_graph.replay_record()
+        out = loop(*args, **kwargs)
+        after = decode_graph.replay_record()
+        ck = out[4][0]
         int8 = isinstance(ck, tuple)
-        seen["int8_steps" if int8 else "float_steps"] += 1
+        steps = (after["steps"] - before["steps"]
+                 + after["warmup_steps"] - before["warmup_steps"])
+        seen["int8_steps" if int8 else "float_steps"] += steps
+        seen["replays"] += after["replays"] - before["replays"]
+        seen["captures"] += after["captures"] - before["captures"]
         seen["frames"].add((ck[0] if int8 else ck).shape[-1])
-        return step(model, tokens, pos, cache, cross_kv, cross_mode=cross_mode)
+        return out
 
     def counted_attentions(*args, **kwargs):
-        seen["captures"] += 1
+        seen["capture_passes"] += 1
         seen["reused"] += kwargs.get("cross_kv") is not None
         return attentions(*args, **kwargs)
 
@@ -924,19 +945,28 @@ def spying(seen: dict):
             seen["dtw_inputs"] = (x.clone(), n.clone(), m.clone())
         return jump(x, n, m)
 
-    (wm.decode_step, timing.get_attentions, decoding.decode,
-     timing.dtw_jump_frames) = (counted_step, counted_attentions, kept_decode,
+    (decode_graph.graphed_loop, timing.get_attentions, decoding.decode,
+     timing.dtw_jump_frames) = (counted_loop, counted_attentions, kept_decode,
                                 kept_jump)
     try:
         yield
     finally:
-        (wm.decode_step, timing.get_attentions, decoding.decode,
-         timing.dtw_jump_frames) = (step, attentions, decode, jump)
+        (decode_graph.graphed_loop, timing.get_attentions, decoding.decode,
+         timing.dtw_jump_frames) = (loop, attentions, decode, jump)
+
+
+def results_of(kept):
+    """A kept decode's results: a ``DecodeFuture`` (the runner's
+    ``async_results``) is read here."""
+    from whisper_char_alignment_tpu_torch.models import decoding
+
+    return kept.result() if isinstance(kept, decoding.DecodeFuture) else kept
 
 
 def new_seen() -> dict:
-    return dict(int8_steps=0, float_steps=0, frames=set(), captures=0,
-                reused=0, results=[], dtw_inputs=None)
+    return dict(int8_steps=0, float_steps=0, replays=0, captures=0,
+                frames=set(), capture_passes=0, reused=0, results=[],
+                dtw_inputs=None)
 
 
 def check_alignments(results, dataset, n: int) -> None:
@@ -983,9 +1013,10 @@ def drive(label: str, pipe, dataset, expected, card: str):
     counts = _lib.launch_counts()
     expect = expected(seen)
     log(f"[{label}] launch counts: {counts} (expected {expect}); decode "
-        f"steps int8 {seen['int8_steps']} float {seen['float_steps']} over "
-        f"{sorted(seen['frames'])} frames; capture passes {seen['captures']}"
-        f", reusing the decode K/V {seen['reused']}")
+        f"steps int8 {seen['int8_steps']} float {seen['float_steps']} "
+        f"({seen['replays']} graph replays, {seen['captures']} captures) "
+        f"over {sorted(seen['frames'])} frames; capture passes "
+        f"{seen['capture_passes']}, reusing the decode K/V {seen['reused']}")
     check(counts == expect, f"[{label}] launch counts differ from the path's")
     check_alignments(results, dataset, len(dataset))
     stages = {k: round(v, 4) for k, v in pipe.stage_seconds.items()}
@@ -1018,15 +1049,15 @@ def cross_mode_phase(pipe, dataset, card: str) -> None:
     """The decode stage of the int8 + bucket pipeline on one batch under the
     ``mxu`` step (plain PyTorch on the int8 codes) and under the
     cross-attention kernel (``pallas``), alternately: mxu, pallas, pallas,
-    mxu, twice. Seconds per batch for each."""
+    mxu, twice. Device seconds per batch for each (graph replays)."""
     batch = [dataset[i] for i in range(BATCH)]
     secs = {"mxu": [], "pallas": []}
     texts = {}
     for mode in ("mxu", "pallas", "pallas", "mxu") * 2:
-        before = pipe.stage_seconds["decode"]
+        before = pipe.stage_seconds["decode dispatch"]
         with environ(WCA_CROSS_ATTN=mode):
             texts[mode] = pipe.transcribe_batch(batch)[0]
-        secs[mode].append(pipe.stage_seconds["decode"] - before)
+        secs[mode].append(pipe.stage_seconds["decode dispatch"] - before)
     same = sum(a == b for a, b in zip(texts["mxu"], texts["pallas"]))
     mean = {k: sum(v) / len(v) for k, v in secs.items()}
     log(f"[cross mode] int8 + bucket decode stage on {card}, s per batch: "
@@ -1067,7 +1098,7 @@ def guarded_phase(model, tok, dataset, card: str) -> None:
         _, mel, xa = pipe.transcribe_batch(batch)
     check(probe["int8_steps"] > 0 and probe["float_steps"] == 0,
           "[guarded] the guard-0 pass did not take int8 steps alone")
-    perturbed = probe["results"][0][:BATCH]
+    perturbed = results_of(probe["results"][0])[:BATCH]
     exact = decoding.decode(pipe.model, tok, mel, pipe.options, xa=xa,
                             device=pipe.device.type)
     margins = np.unique([r.min_margin for r in perturbed])
@@ -1097,7 +1128,7 @@ def guarded_phase(model, tok, dataset, card: str) -> None:
         f"{seen['float_steps']}")
     check(counts == expect, "[guarded] launch counts differ from the path's")
     check_alignments(results, dataset, BATCH)
-    own = seen["results"][0][:BATCH]
+    own = results_of(seen["results"][0])[:BATCH]
     check(len(pipe.min_margins) == BATCH
           and bool(np.isfinite(pipe.min_margins).all()),
           f"[guarded] margins not tracked: {pipe.min_margins}")
@@ -1117,6 +1148,181 @@ def guarded_phase(model, tok, dataset, card: str) -> None:
         f"{sum(flagged)} of {BATCH} rows flagged, each with the exact "
         f"decode's tokens, the others with the int8 + bucket decode's; the "
         f"two decodes differ in {differ} rows")
+
+
+def step_floor(model, cross_kv, cache) -> tuple:
+    """(bytes, ms): what one decode step must read at least, each once: the
+    decoder's weights (the token embedding once, as the logits projection;
+    one row of the positions), the cross K/V (int8 codes and scales, or
+    float) and the self-attention cache, over the card's memory rate."""
+    dec = model.decoder
+    nbytes = sum(p.numel() * p.element_size()
+                 for name, p in dec.named_parameters()
+                 if name != "positional_embedding")
+    nbytes += dec.positional_embedding[0].numel() * \
+        dec.positional_embedding.element_size()
+    for c in cross_kv:
+        for t in (c if isinstance(c, tuple) else (c,)):
+            nbytes += t.numel() * t.element_size()
+    nbytes += sum(t.numel() * t.element_size() for t in cache.values())
+    return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def graph_phase(model, tok, dataset, card: str) -> dict:
+    """Each decode mode of the main path on one batch of its encoder
+    states, through the captured CUDA graph and through the eager loop on
+    the card (``decoding._decode_loop``, the graph's plain version): the
+    float loop whose K/V the capture pass reuses, int8 K/V with a 128-frame
+    bucket through the cross-attention kernel and through the ``mxu`` step,
+    and the guarded pair (both guards, set so that every row is re-decoded
+    exactly). Tokens, ``n_steps``, log-probabilities, no-speech
+    probabilities and margins must be bit-equal. Logs each mode's decode
+    time graphed and eager (host clock around a synchronised call, the
+    graph already captured), the device-busy share of each from a trace,
+    and one step's device time (CUDA events over replays of the captured
+    chunk) against the step's byte floor. Returns the logged numbers."""
+    import math
+
+    import torch
+
+    from whisper_char_alignment_tpu_torch import constants
+    from whisper_char_alignment_tpu_torch.config import AlignConfig
+    from whisper_char_alignment_tpu_torch.models import decode_graph, decoding
+    from whisper_char_alignment_tpu_torch.runner import AlignmentPipeline
+    from whisper_char_alignment_tpu_torch.utils import profiling
+
+    cfg = AlignConfig.recommended(model="medium", batch_size=BATCH,
+                                  use_gt_transcript=True)
+    pipe = AlignmentPipeline(model, tok, cfg, compute_dtype=model.dtype)
+    opts = decoding.DecodingOptions(language="en", sample_len=DECODE_LEN)
+    batch = [dataset[i] for i in range(BATCH)]
+    _, mel, xa = pipe.transcribe_batch(batch)
+    frames = max(u.duration // constants.AUDIO_SAMPLES_PER_TOKEN for u in batch)
+    bucket = min(model.dims.n_audio_ctx, -(-int(frames) // 128) * 128)
+    modes = (("float", "xla", {}),
+             ("int8+bucket kernel", "pallas",
+              dict(kv_int8=True, kv_frames=bucket)),
+             ("int8+bucket mxu", "mxu", dict(kv_int8=True, kv_frames=bucket)),
+             ("guarded pair", "pallas",
+              dict(kv_frames=bucket, kv_int8_guard=1e9, kv_frames_guard=0.0)))
+    eager = lambda dev: decoding._decode_loop  # noqa: E731
+
+    def decode(kw, loop=None):
+        with contextlib.ExitStack() as stack:
+            if loop is not None:
+                stack.enter_context(patched(decoding, _loop_for=loop))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = decoding.decode(model, tok, mel, opts, xa=xa, **kw)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+    out = {}
+    for label, cross, kw in modes:
+        with environ(WCA_CROSS_ATTN=cross):
+            decode(kw)  # captures the mode's graphs
+            decode_graph.reset_record()
+            graphed, g_s = decode(kw)
+            record = decode_graph.replay_record()
+            plain, e_s = decode(kw, eager)
+            for i, (a, b) in enumerate(zip(graphed, plain)):
+                same = (a.tokens == b.tokens and a.n_steps == b.n_steps
+                        and a.avg_logprob == b.avg_logprob
+                        and a.no_speech_prob == b.no_speech_prob
+                        and (a.min_margin == b.min_margin
+                             or (math.isnan(a.min_margin)
+                                 and math.isnan(b.min_margin))))
+                check(same, f"[graph] {label} row {i}: the graphed decode "
+                      f"differs from the eager loop: {a} != {b}")
+            g_busy, e_busy = {}, {}
+            with profiling.busy_window(g_busy):
+                decode(kw)
+            with profiling.busy_window(e_busy):
+                decode(kw, eager)
+            # the last graph captured or replayed: this mode's first decode
+            entry = next(reversed(decode_graph._GRAPHS[model].values()))
+            nbytes, floor_ms = step_floor(model, entry.cross_kv,
+                                          entry.state.cache)
+            reps = 10
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            entry.graph.replay()
+            start.record()
+            for _ in range(reps):
+                entry.graph.replay()
+            end.record()
+            torch.cuda.synchronize()
+            step_ms = start.elapsed_time(end) / (reps
+                                                 * decode_graph.CHUNK_STEPS)
+        n_steps = graphed[0].n_steps
+        out[label] = dict(graphed_s=g_s, eager_s=e_s, step_ms=step_ms,
+                          floor_ms=floor_ms, busy_graphed=g_busy["share"],
+                          busy_eager=e_busy["share"], record=record)
+        log(f"[graph] {label} on {card}: graphed == eager loop, bit for bit, "
+            f"over {BATCH} rows ({n_steps} positions, {record['replays']} "
+            f"replays of {decode_graph.CHUNK_STEPS} steps); decode "
+            f"{g_s * 1e3:.1f} ms graphed, {e_s * 1e3:.1f} ms eager "
+            f"({e_s / g_s:.2f}x); device busy {g_busy['share']:.4f} of "
+            f"{g_busy['window_s'] * 1e3:.1f} ms graphed, "
+            f"{e_busy['share']:.4f} of {e_busy['window_s'] * 1e3:.1f} ms "
+            f"eager (traced; {g_busy['records']} and {e_busy['records']} "
+            f"device records); one step {step_ms:.4f} ms (CUDA events over "
+            f"{reps} replays) against its byte floor {floor_ms:.4f} ms "
+            f"({nbytes / 1e6:.1f} MB; {step_ms / floor_ms:.1f}x)")
+    return out
+
+
+def depth_phase(model, tok, dataset, card: str) -> None:
+    """``run_dataset`` of the default pipeline at ``pipeline_depth`` 1 and 2
+    (graphs captured by the earlier phases): the same words and boundaries
+    in the same order; utts/s and the device-busy share of each run, from a
+    trace of the whole run (a second run, untraced, gives the utts/s)."""
+    import numpy as np
+    import torch
+
+    from whisper_char_alignment_tpu_torch.config import AlignConfig
+    from whisper_char_alignment_tpu_torch.models import decoding
+    from whisper_char_alignment_tpu_torch.runner import AlignmentPipeline
+    from whisper_char_alignment_tpu_torch.utils import profiling
+
+    runs = {}
+    for depth in (1, 2, 2, 1):
+        cfg = AlignConfig.recommended(model="medium", batch_size=BATCH,
+                                      use_gt_transcript=True,
+                                      pipeline_depth=depth)
+        pipe = AlignmentPipeline(model, tok, cfg, compute_dtype=model.dtype)
+        pipe.options = decoding.DecodingOptions(language="en",
+                                                sample_len=DECODE_LEN)
+        busy = {}
+        torch.cuda.synchronize()
+        if depth in runs:  # the second run of a depth is traced
+            with profiling.busy_window(busy):
+                results = list(pipe.run_dataset(dataset, progress=False))
+            runs[depth]["busy"] = busy
+            continue
+        t0 = time.perf_counter()
+        results = list(pipe.run_dataset(dataset, progress=False))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[depth] = dict(results=results, wall=wall,
+                           stages={k: round(v, 4) for k, v in
+                                   pipe.stage_seconds.items()})
+    one, two = runs[1]["results"], runs[2]["results"]
+    check([r.fid for r in one] == [r.fid for r in two], "[depth] order")
+    for a, b in zip(one, two):
+        check(a.words == b.words and np.array_equal(a.start_times,
+                                                    b.start_times)
+              and np.array_equal(a.end_times, b.end_times),
+              f"[depth] {a.fid}: depths 1 and 2 differ")
+    for depth in (1, 2):
+        r = runs[depth]
+        log(f"[depth {depth}] run_dataset on {card}: {len(dataset)} "
+            f"utterances in {r['wall']:.3f} s -> "
+            f"{len(dataset) / r['wall']:.3f} utts/s; device busy "
+            f"{r['busy']['share']:.4f} of {r['busy']['window_s']:.3f} s "
+            f"(traced run); stage device seconds {json.dumps(r['stages'])}")
+    log(f"[depth] depths 1 and 2 give the same words and boundaries of all "
+        f"{len(one)} utterances in the same order")
 
 
 @contextlib.contextmanager
@@ -1444,10 +1650,12 @@ def main_path_phase(card: str):
                   and all(f % 128 == 0 and f < dims.n_audio_ctx
                           for f in seen2["frames"]),
                   "[int8+bucket] the decode did not take bucketed int8 K/V")
-            check(seen2["reused"] == 0 and seen2["captures"] == n_batches,
+            check(seen2["reused"] == 0 and seen2["capture_passes"] == n_batches,
                   "[int8+bucket] the capture pass reused int8/bucketed K/V")
             cross_mode_phase(quant_pipe, dataset, card)
             guarded_phase(model, tok, dataset, card)
+        graph_phase(model, tok, dataset, card)
+        depth_phase(model, tok, dataset, card)
         cli_counts = cli_phase(model, tok, scp, len(dataset), card)
     cli_counts["probe"] = probe_phase(model, tok, card)
     log(f"tiny model CLI, card vs CPU: {tiny_cli_phase()}")

@@ -327,3 +327,57 @@ def test_dtw_kernels_refuse_what_they_do_not_take(cuda):
     one = torch.ones(1, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="boundary"):
         dtw_cuda.dtw_backtrace_jump(tr, one, one)
+
+
+@pytest.mark.parametrize("mode,kw", [
+    ("xla", {}), ("kernel", dict(kv_int8=True, kv_frames=32)),
+    ("mxu", dict(kv_int8=True, kv_frames=32)),
+    ("kernel", dict(kv_int8_guard=1e9, kv_frames=32, kv_frames_guard=0.0))])
+def test_graphed_decode_equals_the_eager_loop(cuda, mode, kw, monkeypatch):
+    """The greedy loop replayed as a CUDA graph against the same loop run
+    eagerly on the card, bit for bit, in each decode mode (the last: the
+    guarded pair, every row re-decoded); the kernel's launches counted
+    exactly under replay (layers x (warm-up + replayed steps))."""
+    from whisper_char_alignment_tpu_torch.config import tiny_test_dims
+    from whisper_char_alignment_tpu_torch.models import decode_graph, decoding
+    from whisper_char_alignment_tpu_torch.text.tokenizer import \
+        get_test_tokenizer
+
+    tok = get_test_tokenizer()
+    dims = tiny_test_dims(n_vocab=tok.n_vocab, n_audio_ctx=40, n_text_ctx=48,
+                          state=128, head=2, layers=2)  # head_dim 64
+    gen = torch.Generator().manual_seed(4)
+    model = tw.cast_params(tw.init_params(tw.Whisper(dims, device="cpu"),
+                                          gen), torch.float32, cuda)
+    mel = torch.randn((4, dims.n_mels, 80), generator=gen).to(cuda)
+    opts = decoding.DecodingOptions(language="en", sample_len=16)
+    monkeypatch.setenv("WCA_CROSS_ATTN", {"xla": "xla", "kernel": "pallas",
+                                          "mxu": "mxu"}[mode])
+    loop, int8_steps = decode_graph.graphed_loop, []
+
+    def counted(*args, **kwargs):  # the steps of loops over int8 K/V
+        before = decode_graph.replay_record()
+        out = loop(*args, **kwargs)
+        after = decode_graph.replay_record()
+        if isinstance(out[4][0], tuple):
+            int8_steps.append(sum(after[k] - before[k]
+                                  for k in ("warmup_steps", "steps")))
+        return out
+
+    monkeypatch.setattr(decode_graph, "graphed_loop", counted)
+    decode_graph.reset_record()
+    before = _lib.launch_counts()["cross_attn_int8"]
+    graphed = decoding.decode(model, tok, mel, opts, **kw)
+    record = decode_graph.replay_record()
+    launched = _lib.launch_counts()["cross_attn_int8"] - before
+    assert record["captures"] >= 1 and record["replays"] >= 1
+    want = dims.n_text_layer * sum(int8_steps) if mode == "kernel" else 0
+    assert launched == want and (mode != "kernel" or want > 0)
+    monkeypatch.setattr(decoding, "_loop_for",
+                        lambda dev: decoding._decode_loop)
+    eager = decoding.decode(model, tok, mel, opts, **kw)
+    for a, b in zip(graphed, eager):
+        assert (a.tokens, a.n_steps, a.avg_logprob, a.no_speech_prob) == (
+            b.tokens, b.n_steps, b.avg_logprob, b.no_speech_prob)
+        assert a.min_margin == b.min_margin or (
+            np.isnan(a.min_margin) and np.isnan(b.min_margin))

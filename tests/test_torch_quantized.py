@@ -340,7 +340,7 @@ def test_capture_pass_reuses_kv_only_when_they_are_its_own(pipe_setup, over,
                                   decode_sample_len=2, **over)
     tp = trunner.AlignmentPipeline(model, get_test_tokenizer(), cfg,
                                    device="cpu")
-    tp_out = tp._transcribe([TIMIT(scp)[i] for i in range(2)])
+    tp_out = tp._dispatch_transcribe([TIMIT(scp)[i] for i in range(2)])
     assert (tp_out["cross_kv"] is not None) == reused
 
 

@@ -11,9 +11,10 @@ On the card: one teacher-forced capture per batch (the QK post-process
 kernel in each decoder layer) and then every (utterance, head)
 column-normalized map as a row of the DTW wavefront and backtrace kernels,
 in launches of at most 1024 rows, with the frame axis cut to the batch's
-longest frame_len rounded up to 256. Scoring is host NumPy. Batches run one
-after the other: the JAX package's overlap of the next batches' transcribe
-with this batch's capture is not carried (ROADMAP item 11).
+longest frame_len rounded up to 256. Scoring is host NumPy. As in the JAX
+package, ``pipeline_depth`` batches keep their transcribe in flight while a
+batch's capture and per-head DTW are queued, and one such batch stays queued
+while the host scores the one before it.
 
 The per-head scoring loop in the reference crashes as committed (it scores
 ``best_ends_hat`` instead of the current head's boundaries and reads an
@@ -25,6 +26,7 @@ the best F1.
 from __future__ import annotations
 
 import argparse
+import collections
 import os
 import sys
 
@@ -37,6 +39,7 @@ from ..align.metrics import (eval_n1, eval_n1_strict, eval_n1_strict_many,
 from ..constants import (AUDIO_SAMPLES_PER_TOKEN, MAX_FRAMES, MAX_LENGTH,
                          TOKENS_PER_SECOND)
 from ..data.dataset import DATASETS
+from ..models.decoding import DecodeFuture
 from ..runner import AlignmentPipeline, _pad_to_multiple, pack_fixed_batch
 from ..text import retokenize
 from . import common
@@ -106,15 +109,18 @@ def infer_dataset(args) -> dict:
     state = dict(corrects=0, total_preds=0, total_gts=0, if_include_best=0)
     sot_len = len(tok.sot_sequence)
 
-    def run_batch(utts):
-        """Transcribe, capture and per-head DTW one batch, then score it on
-        the host (reference semantics, probe_oracle.py:59-122, with the
-        committed scoring bug fixed)."""
-        tp = pipe._transcribe(utts)
+    def dispatch_batch(tp):
+        """Wait for one batch's transcripts, then queue its capture, the
+        saliency of every head and the per-head DTW, and start their
+        outputs' copies to the host (reference semantics,
+        probe_oracle.py:59-122, with the committed scoring bug fixed)."""
+        utts = tp["utts"]
         if cfg.use_gt_transcript:
             transcripts = [u.text for u in utts]
         else:
-            transcripts = [r.text for r in tp["results"][:len(utts)]]
+            with timers.stage("transcripts sync", units=len(utts)):
+                results = tp["future"].result()
+            transcripts = [r.text for r in results[:len(utts)]]
 
         prepared = []
         for u, raw in zip(utts, transcripts):
@@ -132,7 +138,7 @@ def infer_dataset(args) -> dict:
                 continue
             prepared.append((u, text_tokens, tokens, int(max_frames)))
         if not prepared:
-            return
+            return None
 
         # fixed shapes: the batch padded to the pipeline's batch size, the
         # tokens to its 32-token bucket (runner.pack_fixed_batch)
@@ -144,13 +150,13 @@ def infer_dataset(args) -> dict:
             [(p[0], p[2], p[3]) for p in prepared], utts, b_pad, t_bucket,
             tok.eot, dims.n_audio_ctx)
         dev = pipe.device
-        xa_live = tp["xa"][torch.from_numpy(xa_idx).to(dev).long()]
-        tl = torch.from_numpy(token_len).to(dev)
-        fl = torch.from_numpy(frame_len).to(dev)
+        xa_live = tp["xa"][pipe._upload(xa_idx.astype(np.int64))]
+        tl = pipe._upload(token_len)
+        fl = pipe._upload(frame_len)
         with timers.stage("capture", units=len(prepared)):
             attn, _ = timing.get_attentions(
-                pipe.model, None, torch.from_numpy(tokens_arr).to(dev), tl,
-                fl, medfilt_width=args.medfilt_width, qk_scale=1.0,
+                pipe.model, None, pipe._upload(tokens_arr), tl, fl,
+                medfilt_width=args.medfilt_width, qk_scale=1.0,
                 return_logits=False, xa=xa_live, device=dev.type)
         # saliency of all heads (reference probe_oracle.py:83) and the DTW of
         # every (utterance, head), frame-sliced to the batch's bucketed
@@ -158,10 +164,19 @@ def infer_dataset(args) -> dict:
         f_slice = min(dims.n_audio_ctx, _pad_to_multiple(
             int(frame_len[:len(prepared)].max()), FRAME_BUCKET))
         with timers.stage("head dtw", units=len(prepared)):
-            scores_all = timing.head_scores(attn, fl).cpu().numpy()
-            jf_all = _per_head_jump_frames(attn, tl, fl, sot_len,
-                                           frame_slice=f_slice).cpu().numpy()
+            scores_dev = timing.head_scores(attn, fl)
+            jf_dev = _per_head_jump_frames(attn, tl, fl, sot_len,
+                                           frame_slice=f_slice)
         del attn
+        return prepared, DecodeFuture((scores_dev, jf_dev), lambda *a: a)
+
+    def collect_batch(cp):
+        """Wait for one queued batch's outputs and score it on the host."""
+        if cp is None:
+            return
+        prepared, outputs = cp
+        with timers.stage("collect sync", units=len(prepared)):
+            scores_all, jf_all = outputs.result()
         with timers.stage("host scoring", units=len(prepared)):
             _score_batch(prepared, scores_all, jf_all)
 
@@ -227,17 +242,34 @@ def infer_dataset(args) -> dict:
     except ImportError:
         indices = range(len(dataset))
 
+    # the software pipeline of JAX cli/probe_oracle.py:313-340: up to
+    # pipeline_depth batches' transcribe in flight while a batch's capture
+    # and scoring run, and one captured batch queued while the one before
+    # it is scored on the host
+    depth = max(1, cfg.pipeline_depth)
     buf = []
+    pending = collections.deque()
+    captured = collections.deque()
     for i in indices:
         utt = dataset[i]
         if len(utt.text.split()) < 18:
             continue
         buf.append(utt)
         if len(buf) == cfg.batch_size:
-            run_batch(buf)
+            pending.append(pipe._dispatch_transcribe(buf))
             buf = []
+            if len(pending) > depth:
+                captured.append(dispatch_batch(pending.popleft()))
+            while len(captured) > 1:
+                collect_batch(captured.popleft())
     if buf:
-        run_batch(buf)
+        pending.append(pipe._dispatch_transcribe(buf))
+    while pending:
+        captured.append(dispatch_batch(pending.popleft()))
+        while len(captured) > 1:
+            collect_batch(captured.popleft())
+    while captured:
+        collect_batch(captured.popleft())
 
     precision, recall, f1, r_value, _ = get_seg_metrics(
         state["corrects"], state["corrects"], state["total_preds"],

@@ -23,8 +23,11 @@ Math parity notes (vs whisper.model and the JAX package):
   ``ops/encoder_attn_cuda.py``; each decoder layer's cross-attention logits
   through the QK post-process kernel of ``ops/qkpost_cuda.py`` when a median
   width is given, so the raw (L, B, H, T, F) logit stack is never held.
-- the self-attention cache is updated in place (one column per step), where
-  the JAX package returns a new cache.
+- the self-attention cache is updated in place (``index_copy_`` of one
+  column per step, at a position held in a device tensor), where the JAX
+  package returns a new cache; every step attends over the whole cache under
+  a position mask, so its shapes are static and it can be captured in a CUDA
+  graph (``models/decode_graph.py``).
 - with int8 cross K/V (``precompute_cross_kv(..., quantize=True)``) a decode
   step's cross-attention runs as ``WCA_CROSS_ATTN`` says
   (:func:`cross_attn_mode`): the int8-product step (``mxu``), the kernel of
@@ -490,18 +493,18 @@ def _layer_kv(c, layer: int):
     return c[layer]
 
 
-def _cached_layers(model: Whisper, x, cache: Cache, cross_kv, start: int,
-                   mask: Optional[torch.Tensor], cross_mode: str = "xla",
-                   step: bool = False):
-    """Run the decoder blocks over x (B, P, d) at positions start..start+P-1,
-    writing the P new self-attention K/V columns into ``cache`` in place.
-    Position row t attends to cache columns <= start + t (``mask`` holds the
-    causal part within the window; earlier columns are all visible).
+def _cached_layers(model: Whisper, x, cache: Cache, cross_kv,
+                   cols: torch.Tensor, mask: torch.Tensor,
+                   cross_mode: str = "xla", step: bool = False):
+    """Run the decoder blocks over x (B, P, d) at the positions ``cols`` (P,)
+    int64, writing the P new self-attention K/V columns into ``cache`` in
+    place (``index_copy_``). Every row attends over the whole ``max_len``
+    cache with ``mask`` (P, max_len) float32, 0 where a column is visible and
+    -inf elsewhere (JAX ``models/whisper.py:735-757``), so the shapes do not
+    depend on the position and a step can be captured in a CUDA graph.
     ``cross_mode`` and ``step`` pick the int8 cross-attention
     (:func:`_cross_attention_kv`)."""
     dtype = model.dtype
-    p = x.shape[1]
-    end = start + p
     cross_ks, cross_vs = cross_kv
     for layer, blk in enumerate(model.decoder.blocks):
         attn = blk.attn
@@ -511,11 +514,11 @@ def _cached_layers(model: Whisper, x, cache: Cache, cross_kv, start: int,
         q = _split_heads(_linear(attn.query, h), n_head) * scale
         k_new = _split_heads(_linear(attn.key, h), n_head)
         v_new = _split_heads(_linear(attn.value, h), n_head)
-        cache["k"][layer, :, :, :, start:end] = k_new.transpose(-1, -2)
-        cache["v"][layer, :, :, :, start:end] = v_new.transpose(-1, -2)
-        k_all = cache["k"][layer, :, :, :, :end].to(dtype) * scale
-        v_all = cache["v"][layer, :, :, :, :end].to(dtype)
-        a, _ = _attend(q, k_all, v_all, dtype, mask)
+        k_layer, v_layer = cache["k"][layer], cache["v"][layer]
+        for dst, new in ((k_layer, k_new), (v_layer, v_new)):
+            dst.index_copy_(-1, cols, new.transpose(-1, -2).to(dst.dtype))
+        a, _ = _attend(q, k_layer.to(dtype) * scale, v_layer.to(dtype), dtype,
+                       mask)
         x = x + _linear(attn.out, _merge_heads(a))
         c, _ = _cross_attention_kv(blk.cross_attn,
                                    _layer_norm(blk.cross_attn_ln, x),
@@ -527,20 +530,42 @@ def _cached_layers(model: Whisper, x, cache: Cache, cross_kv, start: int,
     return x
 
 
+def _position_mask(rows: torch.Tensor, max_len: int) -> torch.Tensor:
+    """(P, max_len) float32: 0 where cache column <= the row's position,
+    -inf elsewhere."""
+    cols = torch.arange(max_len, device=rows.device)
+    return torch.where(cols[None, :] <= rows[:, None], 0.0,
+                       float("-inf")).to(torch.float32)
+
+
+def _as_position(pos, device) -> torch.Tensor:
+    """A position as a (1,) int64 tensor on ``device``: a Python int is
+    copied there; a tensor is taken as it is (no host read)."""
+    if isinstance(pos, torch.Tensor):
+        return pos.reshape(1).to(device=device, dtype=torch.long)
+    return torch.tensor([int(pos)], dtype=torch.long, device=device)
+
+
 @torch.no_grad()
-def decode_step(model: Whisper, tokens: torch.Tensor, pos: int, cache: Cache,
+def decode_step(model: Whisper, tokens: torch.Tensor, pos, cache: Cache,
                 cross_kv, cross_mode: Optional[str] = None):
-    """One autoregressive decoder step: tokens (B, 1) at position ``pos``;
-    ``cache`` holds self-attention K/V for positions < pos and gains column
-    ``pos`` in place. Returns (logits (B, vocab) f32, cache).
+    """One autoregressive decoder step: tokens (B, 1) at position ``pos``, a
+    Python int or a (1,) int64 tensor on the model's device; ``cache`` holds
+    self-attention K/V for positions < pos and gains column ``pos`` in place.
+    Returns (logits (B, vocab) f32, cache). Shapes do not depend on ``pos``
+    (the whole cache is attended under a position mask), and a tensor
+    position is never read on the host: the step is capturable in a CUDA
+    graph (``models/decode_graph.py``).
     ``cross_mode=None`` resolves ``WCA_CROSS_ATTN`` (:func:`cross_attn_mode`);
     it matters only for int8 cross K/V."""
     if cross_mode is None:
         cross_mode = cross_attn_mode(model.device)
     dec = model.decoder
-    x = (dec.token_embedding.weight[tokens[:, 0]]
-         + dec.positional_embedding[pos])[:, None, :]
-    x = _cached_layers(model, x, cache, cross_kv, pos, None,
+    pos = _as_position(pos, tokens.device)
+    x = (dec.token_embedding.weight.index_select(0, tokens[:, 0])
+         + dec.positional_embedding.index_select(0, pos))[:, None, :]
+    mask = _position_mask(pos, cache["k"].shape[-1])
+    x = _cached_layers(model, x, cache, cross_kv, pos, mask,
                        cross_mode=cross_mode, step=True)
     return _logits(model, _layer_norm(dec.ln, x[:, 0])), cache
 
@@ -550,8 +575,10 @@ def decode_prefill(model: Whisper, tokens: torch.Tensor, cache: Cache,
                    cross_kv, logits_at: Optional[int] = None,
                    cross_mode: Optional[str] = None):
     """Consume the decode prompt (B, P) in one teacher-forced pass, writing
-    cache columns 0..P-1. Returns (logits (B, vocab) f32 at position
-    ``logits_at``, or None to skip the lm head, cache). With int8 cross K/V
+    cache columns 0..P-1; row t attends to cache columns <= t under the same
+    mask as :func:`decode_step` (JAX ``models/whisper.py:865-892``).
+    Returns (logits (B, vocab) f32 at position ``logits_at``, or None to
+    skip the lm head, cache). With int8 cross K/V
     the prefill takes the ``mxu`` step or dequantizes, never the kernel (it
     runs once per decode)."""
     if cross_mode is None:
@@ -559,8 +586,10 @@ def decode_prefill(model: Whisper, tokens: torch.Tensor, cache: Cache,
     dec = model.decoder
     p = tokens.shape[1]
     x = dec.token_embedding.weight[tokens] + dec.positional_embedding[:p]
-    x = _cached_layers(model, x, cache, cross_kv, 0,
-                       _causal_mask(p, x.device), cross_mode=cross_mode)
+    rows = torch.arange(p, device=x.device)
+    x = _cached_layers(model, x, cache, cross_kv, rows,
+                       _position_mask(rows, cache["k"].shape[-1]),
+                       cross_mode=cross_mode)
     if logits_at is None:
         return None, cache
     return _logits(model, _layer_norm(dec.ln, x[:, logits_at])), cache

@@ -14,7 +14,10 @@ fallback: a build or launch failure raises.
 
 ``LAUNCHES`` counts kernel launches by name. A wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that its main path
-went through the kernels (``reset_launches`` / ``launch_counts``).
+went through the kernels (``reset_launches`` / ``launch_counts``). A CUDA
+graph replays kernels without calling their wrappers: the decode graph
+(``models/decode_graph.py``) takes back what its capture counted and adds
+it again at each replay (``add_launches``), so the counts stay exact.
 """
 
 from __future__ import annotations
@@ -83,6 +86,13 @@ def reset_launches() -> None:
 
 def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
+
+
+def add_launches(counts: Dict[str, int], times: int = 1) -> None:
+    """Add ``counts`` ``times`` over (a negative ``times`` takes them back):
+    the launches of a captured graph's kernels, at each replay."""
+    for k, v in counts.items():
+        LAUNCHES[k] += v * times
 
 
 def _nvcc() -> str:

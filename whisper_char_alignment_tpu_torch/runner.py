@@ -1,24 +1,31 @@
 """Batched alignment runner (port of ``whisper_char_alignment_tpu/runner.py``).
 
 One batch runs: int16/f32 wire -> log-mel on the GPU, the encoder, the greedy
-KV-cached decode, char re-tokenization on the host, one teacher-forced
-capture (each decoder layer's cross-attention through the QK post-process
-kernel) with head selection, aggregation and DTW (or, with
+KV-cached decode (a replayed CUDA graph on a card,
+``models/decode_graph.py``), char re-tokenization on the host, one
+teacher-forced capture (each decoder layer's cross-attention through the QK
+post-process kernel) with head selection, aggregation and DTW (or, with
 ``default_whisper_timing``, Whisper's own alignment heads, z-normalized, and
 per-word probabilities), then word times on the host.
 
-The JAX package's software pipeline (a background wire-prep thread and
-``pipeline_depth`` batches in flight) hides host<->TPU transfers; here the
-stages run in a plain loop, one batch after the other. Results and their
-order are the same. Each stage's time is recorded in ``timers``
-(``utils/profiling.StageTimers``; the device is synchronised at the end of a
-stage, so the split is exact); ``stage_seconds`` is its seconds by stage.
+As in the JAX package, a batch is dispatched in three stages
+(``_dispatch_transcribe``, ``_dispatch_align``, ``_collect_align``), and
+``run_dataset`` keeps a software pipeline: a background thread builds the
+next batch's wire buffer, ``pipeline_depth`` batches keep their decode
+results in flight (``decoding.DecodeFuture``) and one capture + align batch
+stays queued while the host turns the previous one into word times. Uploads
+go through pinned memory without blocking. Results and their order do not
+depend on the depth. Each stage's time is recorded in ``timers``
+(``utils/profiling.StageTimers``: device seconds between CUDA events on a
+card, nothing synchronised); ``stage_seconds`` is its seconds by stage.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -202,16 +209,30 @@ class AlignmentPipeline:
             wire[i, :n] = src[:n]  # pad_or_trim semantics: first n samples
         return wire
 
-    def _transcribe(self, utts: Sequence[Utterance]) -> dict:
-        """Mel, encoder and greedy decode for one batch."""
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """A host array on the pipeline's device: on a card through pinned
+        memory, copied without blocking the host."""
+        t = torch.from_numpy(arr)
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _dispatch_transcribe(self, utts: Sequence[Utterance],
+                             wire: Optional[np.ndarray] = None) -> dict:
+        """Stage 1: upload the wire, queue mel and encoder, decode. The
+        transcripts arrive through the returned ``DecodeFuture``. ``wire`` is
+        the batch's buffer from :meth:`_prep_wire` (``run_dataset`` builds it
+        in the background); None builds it here."""
         n = len(utts)
-        with self.timers.stage("wire prep", n):
-            wire = torch.from_numpy(self._prep_wire(utts)).to(self.device)
-        b_pad = wire.shape[0]
+        if wire is None:
+            with self.timers.stage("wire prep", n):
+                wire = self._prep_wire(utts)
         n_samples = 2 * self.dims.n_audio_ctx * constants.HOP_LENGTH
         with self.timers.stage("mel", n):
-            mel = wire_to_mel(wire, self.dims.n_mels, total_samples=n_samples,
+            mel = wire_to_mel(self._upload(wire), self.dims.n_mels,
+                              total_samples=n_samples,
                               compute_dtype=self.compute_dtype)
+        b_pad = mel.shape[0]
         with self.timers.stage("encoder", n):
             xa = wmodel.encode_audio(self.model, mel,
                                      device=self.device.type)
@@ -226,15 +247,17 @@ class AlignmentPipeline:
         kv_int8 = cfg.decode_kv_int8 or cfg.decode_kv_int8_guarded
         # cross-K/V reuse: only when the decode loop's K/V are the capture
         # pass's own (full frames, not quantized), and when they fit the
-        # budget (WCA_REUSE_KV_MAX_BYTES, default 8e9 bytes); the JAX package
-        # divides it among the batches its pipeline keeps in flight, here
-        # one batch is live at a time
+        # budget (WCA_REUSE_KV_MAX_BYTES, default 8e9 bytes) divided among
+        # the stacks run_dataset keeps alive: pipeline_depth batches with
+        # their decode in flight and one in the capture (JAX runner.py:390)
+        n_live = max(1, cfg.pipeline_depth) + 1
         reuse_kv = (cfg.reuse_cross_kv and kv_frames is None and not kv_int8
                     and _cross_kv_bytes(self.dims, b_pad, self.compute_dtype)
+                    * n_live
                     <= int(float(os.environ.get("WCA_REUSE_KV_MAX_BYTES",
                                                 8e9))))
-        with self.timers.stage("decode", n):
-            results, xa, cross_kv = decoding.decode(
+        with self.timers.stage("decode dispatch", n):
+            future, xa, cross_kv = decoding.decode(
                 self.model, self.tokenizer, mel, self.options,
                 return_cross_kv=True, xa=xa, device=self.device.type,
                 kv_frames=kv_frames, kv_int8=kv_int8,
@@ -242,29 +265,36 @@ class AlignmentPipeline:
                                if cfg.decode_kv_int8_guarded else None),
                 kv_frames_guard=(decoding.default_bucket_guard_margin()
                                  if cfg.decode_frame_bucket_guarded
-                                 else None))
-        return dict(utts=utts, results=results, mel=mel, xa=xa,
+                                 else None),
+                async_results=True)
+        return dict(utts=utts, future=future, mel=mel, xa=xa,
                     cross_kv=cross_kv if reuse_kv else None)
 
     def transcribe_batch(self, utts: Sequence[Utterance]):
-        """(transcripts, mel batch, encoder states)."""
-        p = self._transcribe(utts)
-        return [r.text for r in p["results"][:len(utts)]], p["mel"], p["xa"]
+        """Synchronous wrapper: (transcripts, mel batch, encoder states)."""
+        p = self._dispatch_transcribe(utts)
+        results = p["future"].result()
+        return [r.text for r in results[:len(utts)]], p["mel"], p["xa"]
 
     def align_batch(self, utts: Sequence[Utterance],
                     return_matrix: bool = False) -> List[UttAlignment]:
-        """One batch, end to end."""
-        return self._align(self._transcribe(utts), return_matrix=return_matrix)
+        """One batch, end to end (the three stages back to back)."""
+        return self._collect_align(self._dispatch_align(
+            self._dispatch_transcribe(utts), return_matrix=return_matrix))
 
-    def _align(self, tp: dict, return_matrix: bool = False
-               ) -> List[UttAlignment]:
+    def _dispatch_align(self, tp: dict, return_matrix: bool = False) -> dict:
+        """Stage 2: wait for this batch's transcripts, re-tokenize on the
+        host, queue the capture and the alignment, and start their outputs'
+        copies to the host."""
         cfg = self.cfg
         tok = self.tokenizer
         utts = tp["utts"]
         xa = tp["xa"]
-        transcripts = [r.text for r in tp["results"][:len(utts)]]
+        with self.timers.stage("transcripts sync", len(utts)):
+            results = tp["future"].result()
+        transcripts = [r.text for r in results[:len(utts)]]
         self.min_margins.extend(float(r.min_margin)
-                                for r in tp["results"][:len(utts)]
+                                for r in results[:len(utts)]
                                 if np.isfinite(r.min_margin))
 
         with self.timers.stage("retokenize", len(utts)):
@@ -289,7 +319,7 @@ class AlignmentPipeline:
                                  int(max_frames), skip))
 
         live = [p for p in prepared if not p[6]]
-        jump_frames = matrix_np = sel = token_probs = None
+        outputs = None
         if live:
             b_pad = max(self.cfg.batch_size, len(live))
             t_max = max(len(p[4]) for p in live)
@@ -307,10 +337,10 @@ class AlignmentPipeline:
                 cross_kv = None
             dev = self.device
             xa_live = (None if cross_kv is not None
-                       else xa[torch.from_numpy(xa_idx).to(dev).long()])
-            token_len_t = torch.from_numpy(token_len).to(dev)
-            frame_len_t = torch.from_numpy(frame_len).to(dev)
-            tokens_t = torch.from_numpy(tokens_arr).to(dev)
+                       else xa[self._upload(xa_idx.astype(np.int64))])
+            token_len_t = self._upload(token_len)
+            frame_len_t = self._upload(frame_len)
+            tokens_t = self._upload(tokens_arr)
             if cfg.default_whisper_timing:
                 with self.timers.stage("capture+align", len(live)):
                     jump_dev, probs_dev, matrix_dev = \
@@ -320,11 +350,9 @@ class AlignmentPipeline:
                             medfilt_width=cfg.medfilt_width,
                             qk_scale=cfg.qk_scale, sot_len=self.sot_len,
                             xa=xa_live, cross_kv=cross_kv, device=dev.type)
-                    jump_frames = jump_dev.cpu().numpy()
-                    token_probs = probs_dev.cpu().numpy()
-                    if return_matrix:
-                        matrix_np = matrix_dev.cpu().numpy()
+                sel = ()
             else:
+                probs_dev = None
                 with self.timers.stage("capture", len(live)):
                     attn, _ = timing.get_attentions(
                         self.model, None, tokens_t, token_len_t, frame_len_t,
@@ -337,12 +365,30 @@ class AlignmentPipeline:
                         cfg.aggr, cfg.topk, cfg.w_colnorm, cfg.w_rownorm,
                         cfg.w_coverage)
                     del attn
-                    jump_frames = jump_dev.cpu().numpy()
-                    if return_matrix:
-                        matrix_np = matrix_dev.cpu().numpy()
-                    if scores is not None:
-                        sel = (scores[1].cpu().numpy(),
-                               scores[2].cpu().numpy())
+                sel = () if scores is None else (scores[1], scores[2])
+            named = dict(jump=jump_dev, probs=probs_dev,
+                         matrix=matrix_dev if return_matrix else None)
+            named.update(zip(("sel0", "sel1"), sel))
+            named = {k: v for k, v in named.items() if v is not None}
+            outputs = decoding.DecodeFuture(
+                list(named.values()),
+                lambda *arrays: dict(zip(named, arrays)))
+        return dict(utts=utts, prepared=prepared, live=live, outputs=outputs)
+
+    def _collect_align(self, ap: dict) -> List[UttAlignment]:
+        """Stage 3: wait for the alignment's outputs and turn them into word
+        times on the host."""
+        cfg = self.cfg
+        tok = self.tokenizer
+        prepared = ap["prepared"]
+        host = {}
+        if ap["outputs"] is not None:
+            with self.timers.stage("collect sync", len(ap["live"])):
+                host = ap["outputs"].result()
+        jump_frames = host.get("jump")
+        token_probs = host.get("probs")
+        matrix_np = host.get("matrix")
+        sel = (host["sel0"], host["sel1"]) if "sel0" in host else None
 
         out: List[UttAlignment] = []
         # device rows follow `live` (prepared minus skips, order kept): index
@@ -396,7 +442,14 @@ class AlignmentPipeline:
 
     def run_dataset(self, dataset, progress: bool = True):
         """Iterate a dataset in batches; yields UttAlignment per utterance,
-        in dataset order (or duration order with ``cfg.sort_by_duration``)."""
+        in dataset order (or duration order with ``cfg.sort_by_duration``).
+
+        Software-pipelined as the JAX runner is (JAX ``runner.py:619-686``):
+        a one-batch-lookahead thread builds the next batch's wire buffer;
+        up to ``cfg.pipeline_depth`` batches keep their decode results in
+        flight before the oldest one's transcripts are read; one capture +
+        align batch stays queued on the device while the host collects the
+        one before it."""
         order = None
         if self.cfg.sort_by_duration:
             from .data.dataset import duration_order
@@ -411,5 +464,40 @@ class AlignmentPipeline:
             else:
                 total = -(-len(dataset) // self.cfg.batch_size)
                 it = tqdm(it, total=total)
-        for batch in it:
-            yield from self.align_batch(batch, return_matrix=self.cfg.plot)
+        rm = self.cfg.plot
+        depth = max(1, self.cfg.pipeline_depth)
+        transcribed = collections.deque()  # decode results in flight
+        aligned = collections.deque()  # capture + align in flight
+        ex = ThreadPoolExecutor(max_workers=1,
+                                thread_name_prefix="wca-wireprep")
+
+        def prepped(batches):
+            prev = None
+            for batch in batches:
+                fut = ex.submit(self._prep_wire, batch)
+                if prev is not None:
+                    yield prev
+                prev = (batch, fut)
+            if prev is not None:
+                yield prev
+
+        try:
+            for batch, wire_fut in prepped(it):
+                with self.timers.stage("wire wait", len(batch)):
+                    wire = wire_fut.result()
+                transcribed.append(self._dispatch_transcribe(batch,
+                                                             wire=wire))
+                if len(transcribed) > depth:
+                    aligned.append(self._dispatch_align(
+                        transcribed.popleft(), return_matrix=rm))
+                while len(aligned) > 1:
+                    yield from self._collect_align(aligned.popleft())
+            while transcribed:
+                aligned.append(self._dispatch_align(transcribed.popleft(),
+                                                    return_matrix=rm))
+                while len(aligned) > 1:
+                    yield from self._collect_align(aligned.popleft())
+            while aligned:
+                yield from self._collect_align(aligned.popleft())
+        finally:
+            ex.shutdown(wait=True, cancel_futures=True)

@@ -1,10 +1,14 @@
-"""Stage timers and a device trace (port of ``whisper_char_alignment_tpu/utils/profiling.py``).
+"""Stage timers and device traces (port of ``whisper_char_alignment_tpu/utils/profiling.py``).
 
-:class:`StageTimers` accumulates wall time, calls and units per named stage,
-with the device synchronised at each stage's end, so a stage's time holds
-its own device work and nothing of the next stage's. :func:`device_trace`
-records a ``torch.profiler`` trace of a block (host and, on a card, device
-activity) and writes it as a Chrome trace for Perfetto.
+:class:`StageTimers` accumulates, per named stage, host seconds, calls and
+units, and on a CUDA device the device seconds between two CUDA events
+recorded on the current stream at the stage's start and end. Nothing
+synchronises while stages run, so timing a stage does not serialise the
+runner's software pipeline; the events are resolved only when ``totals`` or
+``summary`` is read. :func:`device_trace` records a ``torch.profiler`` trace
+of a block (host and, on a card, device activity) and writes it as a Chrome
+trace for Perfetto; :func:`busy_window` and :func:`trace_busy` give a
+trace's device-busy share.
 """
 
 from __future__ import annotations
@@ -15,39 +19,69 @@ import json
 import os
 import sys
 import time
-from typing import Dict, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
 
 class StageTimers:
-    """Accumulates wall time + counts per named stage. ``device``: a CUDA
-    device is synchronised at the end of every stage; the CPU needs none."""
+    """Host seconds, calls and units per named stage, and device seconds on
+    a CUDA ``device`` (a pair of CUDA events per stage call, resolved when
+    read)."""
 
     def __init__(self, device: Optional[torch.device] = None):
         self.device = device
-        self.totals: Dict[str, float] = collections.defaultdict(float)
+        self.host_totals: Dict[str, float] = collections.defaultdict(float)
         self.counts: Dict[str, int] = collections.defaultdict(int)
         self.units: Dict[str, int] = collections.defaultdict(int)
+        self._pending = collections.defaultdict(list)
+        self._device_totals: Dict[str, float] = collections.defaultdict(float)
+
+    @property
+    def on_device(self) -> bool:
+        return (self.device is not None
+                and torch.device(self.device).type == "cuda")
 
     def reset(self) -> None:
-        self.totals.clear()
-        self.counts.clear()
-        self.units.clear()
+        for d in (self.host_totals, self.counts, self.units, self._pending,
+                  self._device_totals):
+            d.clear()
 
     @contextlib.contextmanager
     def stage(self, name: str, units: int = 0):
+        pair = None
+        if self.on_device:
+            pair = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            pair[0].record()
         t0 = time.perf_counter()
         try:
             yield
         finally:
-            if self.device is not None and self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            self.totals[name] += time.perf_counter() - t0
+            if pair is not None:
+                pair[1].record()
+                self._pending[name].append(pair)
+            self.host_totals[name] += time.perf_counter() - t0
             self.counts[name] += 1
             self.units[name] += units
 
+    @property
+    def totals(self) -> Dict[str, float]:
+        """Seconds by stage: on a card the device seconds between each
+        stage's events (resolved here, which waits for the last of them),
+        on the CPU the host seconds."""
+        if not self.on_device:
+            return dict(self.host_totals)
+        for name, pairs in self._pending.items():
+            for start, end in pairs:
+                end.synchronize()
+                self._device_totals[name] += start.elapsed_time(end) / 1e3
+            pairs.clear()
+        return {name: self._device_totals[name] for name in self.host_totals}
+
     def summary(self) -> Dict[str, dict]:
+        """Per stage: ``total_s`` (:attr:`totals`), calls, ms per call, units
+        per second, and on a card ``host_s`` beside the device seconds."""
         out = {}
         for name, total in sorted(self.totals.items(), key=lambda kv: -kv[1]):
             out[name] = {
@@ -56,13 +90,72 @@ class StageTimers:
                 "ms_per_call": round(1000 * total / max(self.counts[name], 1),
                                      2),
             }
-            if self.units[name]:
+            if self.on_device:
+                out[name]["host_s"] = round(self.host_totals[name], 4)
+            if self.units[name] and total > 0:
                 out[name]["units_per_s"] = round(self.units[name] / total, 2)
         return out
 
     def report(self, file=sys.stderr) -> None:
-        if self.totals:
+        if self.host_totals:
             print("stage profile: " + json.dumps(self.summary()), file=file)
+
+
+def busy_share(intervals: Iterable[Tuple[float, float]],
+               window: Tuple[float, float]) -> float:
+    """The share of ``window`` (start, end) covered by the union of
+    ``intervals``, each clipped to the window."""
+    lo, hi = window
+    covered, reach = 0.0, lo
+    for start, end in sorted(intervals):
+        start, end = max(start, reach), min(end, hi)
+        if end > start:
+            covered += end - start
+            reach = end
+    return covered / (hi - lo) if hi > lo else 0.0
+
+
+def trace_busy(prof) -> Dict[str, Optional[float]]:
+    """The device-busy share of a ``torch.profiler`` profile taken with CUDA
+    activity: the union of its device records (kernels, copies, sets) over
+    the window from its first to its last record, host or device. Records
+    that begin before the trace (negative starts) are left out. Returns
+    ``busy_s``, ``window_s``, ``share`` (None without device records) and
+    ``records``, the count of device records."""
+    from torch.autograd import DeviceType
+
+    spans, device = [], []
+    for e in prof.events():
+        r = (e.time_range.start, e.time_range.end)
+        if r[0] < 0:
+            continue
+        spans.append(r)
+        if e.device_type == DeviceType.CUDA:
+            device.append(r)
+    if not device:
+        return dict(busy_s=None, window_s=None, share=None, records=0)
+    window = (min(r[0] for r in spans), max(r[1] for r in spans))
+    share = busy_share(device, window)
+    width = (window[1] - window[0]) / 1e6  # the records are in microseconds
+    return dict(busy_s=share * width, window_s=width, share=share,
+                records=len(device))
+
+
+@contextlib.contextmanager
+def busy_window(out: dict):
+    """Trace the block on the card (``torch.profiler``, CPU and CUDA
+    activity; the card is synchronised before the trace stops) and fill
+    ``out`` with :func:`trace_busy` of it. Raises without a card: a busy
+    share is a device number."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("a device-busy share needs a CUDA card")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        yield out
+        torch.cuda.synchronize()
+    out.update(trace_busy(prof))
 
 
 @contextlib.contextmanager
