@@ -63,7 +63,21 @@ Phases (any failure exits non-zero and prints no final line):
    eager, the device-busy share of each from a trace, and one step's time
    against the step's byte floor; then ``run_dataset`` at
    ``pipeline_depth`` 1 and 2 gives the same results in the same order,
-   with utts/s and the busy share of each.
+   with utts/s and the busy share of each. The decoding modes follow:
+   ``run_dataset`` with beam 5 and with sampling at 0.7 with best_of 5,
+   each with exact launch counts, the capture pass recomputing the cross
+   K/V, and the NumPy DTW oracle; on one batch's encoder states, beam 5
+   (patience None and 2.0, length penalty None and 0.6, with and without
+   timestamps), sampling at 0.7 and 1.0 through one graph, a prompt plus a
+   prefix under ``language=None`` and per-row prompts through the greedy
+   and the beam graph, each graphed decode bit-equal to its eager loop on
+   the card (raw loop outputs too), the detected languages equal to an
+   eager ``detect_language``, a beam and a sampling step against their
+   byte floor and the busy share of a traced beam decode; and the
+   speculative decode (medium target, a ``MODEL_DIMS["tiny"]`` draft,
+   ``draft_k`` 4, one utterance) graphed against eager in bf16 and f32,
+   its f32 transcript against greedy's (a difference passes only at a
+   top1-top2 gap below 1e-4), its round time beside a greedy B=1 step.
 4. A JSON line of per-kernel numbers, then
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
@@ -1243,17 +1257,7 @@ def graph_phase(model, tok, dataset, card: str) -> dict:
             entry = next(reversed(decode_graph._GRAPHS[model].values()))
             nbytes, floor_ms = step_floor(model, entry.cross_kv,
                                           entry.state.cache)
-            reps = 10
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            entry.graph.replay()
-            start.record()
-            for _ in range(reps):
-                entry.graph.replay()
-            end.record()
-            torch.cuda.synchronize()
-            step_ms = start.elapsed_time(end) / (reps
-                                                 * decode_graph.CHUNK_STEPS)
+            step_ms = graph_step_ms(entry)
         n_steps = graphed[0].n_steps
         out[label] = dict(graphed_s=g_s, eager_s=e_s, step_ms=step_ms,
                           floor_ms=floor_ms, busy_graphed=g_busy["share"],
@@ -1267,7 +1271,7 @@ def graph_phase(model, tok, dataset, card: str) -> dict:
             f"{e_busy['share']:.4f} of {e_busy['window_s'] * 1e3:.1f} ms "
             f"eager (traced; {g_busy['records']} and {e_busy['records']} "
             f"device records); one step {step_ms:.4f} ms (CUDA events over "
-            f"{reps} replays) against its byte floor {floor_ms:.4f} ms "
+            f"10 replays) against its byte floor {floor_ms:.4f} ms "
             f"({nbytes / 1e6:.1f} MB; {step_ms / floor_ms:.1f}x)")
     return out
 
@@ -1323,6 +1327,296 @@ def depth_phase(model, tok, dataset, card: str) -> None:
             f"(traced run); stage device seconds {json.dumps(r['stages'])}")
     log(f"[depth] depths 1 and 2 give the same words and boundaries of all "
         f"{len(one)} utterances in the same order")
+
+
+@contextlib.contextmanager
+def loop_runs(runs: list, eager: bool = False):
+    """Keep the raw outputs of every beam, sampling and speculative loop run
+    while the block runs, each run through the graph runner or, with
+    ``eager``, the eager loop (``decoding.run_eager``, the graph's plain
+    version)."""
+    from whisper_char_alignment_tpu_torch.models import decode_graph, decoding
+
+    inner = decoding.run_eager if eager else decode_graph.replay
+
+    def run(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        runs.append(out)
+        return out
+
+    with patched(decoding, runner_for=lambda dev: run):
+        yield
+
+
+def same_bits(a, b) -> bool:
+    import torch
+
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def same_results(got, want) -> bool:
+    """Two decodes' results equal in every field the loop gives, bit for
+    bit (NaN equal to NaN)."""
+    import math
+
+    def key(r):
+        return (r.tokens, r.n_steps, r.avg_logprob, r.language,
+                "nan" if math.isnan(r.no_speech_prob) else r.no_speech_prob)
+
+    return [key(r) for r in got] == [key(r) for r in want]
+
+
+def graph_step_ms(entry, reps: int = 10) -> float:
+    """One step of a captured chunk by CUDA events over ``reps`` replays
+    after one untimed replay (steps past the loop's end run every kernel,
+    their writes gated)."""
+    import torch
+
+    from whisper_char_alignment_tpu_torch.models import decode_graph
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    entry.graph.replay()
+    start.record()
+    for _ in range(reps):
+        entry.graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * decode_graph.CHUNK_STEPS)
+
+
+def graph_entry(model, kind: str):
+    """The graph of loop ``kind`` ("greedy", "beam", ...) used last."""
+    from whisper_char_alignment_tpu_torch.models import decode_graph
+
+    return next(e for k, e in reversed(decode_graph._GRAPHS[model].items())
+                if k[0] == kind)
+
+
+def modes_phase(model, tok, dataset, card: str) -> dict:
+    """The decoding modes at Whisper-medium width on one batch of 8
+    encoder states, each through its captured CUDA graph and through its
+    eager loop on the card (``decoding.run_eager``, the plain version), the
+    raw loop outputs bit-equal: beam 5 with patience None and 2.0, length
+    penalty None and 0.6, with and without timestamps; sampling at
+    temperatures 0.7 and 1.0 with best_of 5 through one graph (the same
+    generator seed on both sides, so the same noise); a prompt plus a
+    prefix with ``language=None`` and per-row prompts through the greedy
+    and the beam graph, the detected codes equal to an eager
+    ``detect_language`` on the same encoder states. Logs each decode's time
+    graphed and eager, one beam and one sampling step against its byte
+    floor (CUDA events over replays of the captured chunk) and the
+    device-busy share of a traced beam decode. Returns the numbers."""
+    import torch
+
+    from whisper_char_alignment_tpu_torch.config import AlignConfig
+    from whisper_char_alignment_tpu_torch.models import decode_graph, decoding
+    from whisper_char_alignment_tpu_torch.runner import AlignmentPipeline
+    from whisper_char_alignment_tpu_torch.utils import profiling
+
+    cfg = AlignConfig.recommended(model="medium", batch_size=BATCH,
+                                  use_gt_transcript=True)
+    pipe = AlignmentPipeline(model, tok, cfg, compute_dtype=model.dtype)
+    _, mel, xa = pipe.transcribe_batch([dataset[i] for i in range(BATCH)])
+
+    def timed(opts, eager=False, greedy=False):
+        runs = []
+        with contextlib.ExitStack() as stack:
+            if greedy and eager:
+                stack.enter_context(patched(
+                    decoding, _loop_for=lambda dev: decoding._decode_loop))
+            if not greedy:
+                stack.enter_context(loop_runs(runs, eager))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = decoding.decode(model, tok, mel, opts, xa=xa)
+            torch.cuda.synchronize()
+        return res, runs, time.perf_counter() - t0
+
+    def hold(label, opts, greedy=False):
+        """The decode graphed (its graph captured by an untimed first
+        decode) and eager; returns (results, graphed s, eager s, graphs
+        captured)."""
+        before = decode_graph.replay_record()
+        decoding.decode(model, tok, mel, opts, xa=xa)
+        captured = (decode_graph.replay_record()["captures"]
+                    - before["captures"])
+        before = decode_graph.replay_record()
+        graphed, g_runs, g_s = timed(opts, greedy=greedy)
+        after = decode_graph.replay_record()
+        record = {k: after[k] - before[k] for k in after}
+        eager, e_runs, e_s = timed(opts, eager=True, greedy=greedy)
+        check(record["captures"] == 0 and record["replays"] > 0,
+              f"[modes] {label}: no replay of a captured graph {record}")
+        check(same_results(graphed, eager)
+              and all(same_bits(a, b) for a, b in zip(g_runs, e_runs)),
+              f"[modes] {label}: the graphed decode differs from the eager "
+              f"loop")
+        log(f"[modes] {label} on {card}: graphed == eager loop, bit for bit"
+            f"{' (raw loop outputs too)' if g_runs else ''}, over {BATCH} "
+            f"audios ({graphed[0].n_steps} positions, {record['replays']} "
+            f"replays of {decode_graph.CHUNK_STEPS} steps); decode "
+            f"{g_s * 1e3:.1f} ms graphed, {e_s * 1e3:.1f} ms eager "
+            f"({e_s / g_s:.2f}x); result lengths "
+            f"{[len(r.tokens) for r in graphed]}")
+        return graphed, g_s, e_s, captured
+
+    out = {}
+    beams = ((None, None, False), (2.0, None, False), (None, 0.6, True),
+             (2.0, 0.6, True))
+    for patience, alpha, no_ts in beams:
+        label = (f"beam 5, patience {patience}, length penalty {alpha}, "
+                 f"{'without' if no_ts else 'with'} timestamps")
+        opts = decoding.DecodingOptions(
+            language="en", sample_len=DECODE_LEN, beam_size=5,
+            patience=patience, length_penalty=alpha, without_timestamps=no_ts)
+        _, g_s, e_s, _ = hold(label, opts)
+        if patience or alpha or no_ts:
+            continue
+        out.update(beam_graphed_s=g_s, beam_eager_s=e_s)
+        entry = graph_entry(model, "beam")
+        nbytes, floor_ms = step_floor(model, entry.cross_kv,
+                                      entry.state.cache)
+        step_ms = graph_step_ms(entry)
+        busy = {}
+        with profiling.busy_window(busy):
+            decoding.decode(model, tok, mel, opts, xa=xa)
+        out.update(beam_step_ms=step_ms, beam_floor_ms=floor_ms,
+                   beam_busy=busy["share"])
+        log(f"[modes] beam 5 on {card}: one step {step_ms:.4f} ms (CUDA "
+            f"events over 10 replays) against its byte floor {floor_ms:.4f} "
+            f"ms ({nbytes / 1e6:.1f} MB: decoder weights, the cross K/V "
+            f"repeated per beam, the cache; {step_ms / floor_ms:.2f}x); a "
+            f"traced beam decode busy {busy['share']:.4f} of "
+            f"{busy['window_s'] * 1e3:.1f} ms ({busy['records']} device "
+            f"records)")
+
+    captures = []
+    for temperature in (0.7, 1.0):
+        _, g_s, e_s, captured = hold(
+            f"sampling at {temperature}, best_of 5",
+            decoding.DecodingOptions(language="en", sample_len=DECODE_LEN,
+                                     temperature=temperature, best_of=5))
+        captures.append(captured)
+        out[f"sample_{temperature}_graphed_s"] = g_s
+        out[f"sample_{temperature}_eager_s"] = e_s
+    check(captures == [1, 0], f"[modes] sampling graphs captured per "
+          f"temperature: {captures}, not one for both")
+    entry = graph_entry(model, "sample")
+    nbytes, floor_ms = step_floor(model, entry.cross_kv, entry.state.cache)
+    step_ms = graph_step_ms(entry)
+    out.update(sample_step_ms=step_ms, sample_floor_ms=floor_ms)
+    log(f"[modes] sampling on {card}: temperatures 0.7 and 1.0 replayed one "
+        f"captured graph; one step {step_ms:.4f} ms against its byte floor "
+        f"{floor_ms:.4f} ms ({nbytes / 1e6:.1f} MB; "
+        f"{step_ms / floor_ms:.2f}x)")
+
+    codes = [c for c, _ in decoding.detect_language(model, tok, xa=xa)]
+    rows = [[300 + 7 * i + j for j in range(5)] for i in range(mel.shape[0])]
+    for label, kw, greedy in (
+            ("greedy, language=None, prompt + prefix",
+             dict(language=None, prompt="the quick fox", prefix="and"), True),
+            ("greedy, per-row prompts", dict(language="en", prompt=rows),
+             True),
+            ("beam 5, language=None, prompt + prefix",
+             dict(language=None, prompt="the quick fox", prefix="and",
+                  beam_size=5), False),
+            ("beam 5, per-row prompts",
+             dict(language="en", prompt=rows, beam_size=5), False)):
+        res = hold(label, decoding.DecodingOptions(
+            sample_len=DECODE_LEN, **kw), greedy=greedy)[0]
+        if kw["language"] is None:
+            check([r.language for r in res] == codes,
+                  f"[modes] {label}: languages {[r.language for r in res]} "
+                  f"!= an eager detect's {codes}")
+    log(f"[modes] language=None decoded each row in the language an eager "
+        f"detect_language on the same encoder states gives: {codes}")
+    return out
+
+
+def speculative_phase(model, tok, dataset, card: str) -> dict:
+    """``decode_speculative`` at Whisper-medium width on one utterance,
+    drafted by a ``MODEL_DIMS["tiny"]`` model (random weights from
+    ``torch.Generator`` seed 1), ``draft_k`` 4: the graphed rounds
+    bit-equal to the eager rounds on the card, in bf16 and in float32. In
+    float32 the transcript must equal the graphed greedy decode of the same
+    target, or differ first at a step whose top1-top2 filtered-logit gap
+    (read from an eager greedy decode) is below 1e-4, a near-tie the order
+    of a product can flip; in bf16 the agreement is logged. Logs
+    ``n_rounds`` / ``n_steps`` and one round's device time beside one
+    greedy B=1 step's (CUDA events over replays of each captured
+    chunk)."""
+    import torch
+
+    from whisper_char_alignment_tpu_torch.config import MODEL_DIMS, AlignConfig
+    from whisper_char_alignment_tpu_torch.models import decoding
+    from whisper_char_alignment_tpu_torch.models import whisper as wm
+    from whisper_char_alignment_tpu_torch.runner import AlignmentPipeline
+
+    cfg = AlignConfig.recommended(model="medium", batch_size=BATCH,
+                                  use_gt_transcript=True)
+    pipe = AlignmentPipeline(model, tok, cfg, compute_dtype=model.dtype)
+    mel = pipe.transcribe_batch([dataset[0]])[1][0]
+    gen = torch.Generator(device=model.device).manual_seed(1)
+    draft = wm.init_params(wm.Whisper(MODEL_DIMS["tiny"], device=model.device,
+                                      dtype=model.dtype), gen)
+    opts = decoding.DecodingOptions(language="en", sample_len=DECODE_LEN)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        target = wm.cast_params(model, dtype)
+        small = wm.cast_params(draft, dtype)
+        greedy = decoding.decode(target, tok, mel, opts)
+        runs, eager_runs = [], []
+        with loop_runs(runs):
+            spec, info = decoding.decode_speculative(
+                target, small, tok, mel, opts, draft_k=4, return_info=True)
+        with loop_runs(eager_runs, eager=True):
+            plain, plain_info = decoding.decode_speculative(
+                target, small, tok, mel, opts, draft_k=4, return_info=True)
+        check(info == plain_info and same_results([spec], [plain])
+              and same_bits(runs[0], eager_runs[0]),
+              f"[speculative {name}] the graphed rounds differ from the "
+              f"eager rounds")
+        first = next((j for j, (a, b) in enumerate(
+            zip(spec.tokens + [tok.eot], greedy.tokens + [tok.eot]))
+            if a != b), None)
+        note = "equal to the greedy decode's"
+        if first is not None:
+            note = (f"first differs from the greedy decode's at sampled "
+                    f"token {first} ({len(spec.tokens)} and "
+                    f"{len(greedy.tokens)} tokens)")
+            if dtype == torch.float32:
+                filtered = []
+                keep = decoding.apply_logit_filters
+
+                def recording(*args, **kwargs):
+                    f = keep(*args, **kwargs)
+                    filtered.append(f.float().clone())
+                    return f
+
+                with patched(decoding, apply_logit_filters=recording,
+                             _loop_for=lambda dev: decoding._decode_loop):
+                    decoding.decode(target, tok, mel, opts)
+                top2 = filtered[first][0].topk(2).values
+                gap = float(top2[0] - top2[1])
+                note += f"; the greedy top1-top2 gap there {gap:.3g}"
+                check(gap < 1e-4, f"[speculative f32] the transcript differs "
+                      f"from greedy at a gap of {gap:.3g} >= 1e-4: the window "
+                      f"is wrong")
+        round_ms = graph_step_ms(graph_entry(target, "speculative"))
+        step_ms = graph_step_ms(graph_entry(target, "greedy"))
+        out[name] = dict(info=info, round_ms=round_ms, greedy_step_ms=step_ms,
+                         first_difference=first)
+        log(f"[speculative {name}] on {card}: graphed rounds == eager rounds,"
+            f" bit for bit; {info['n_rounds']} rounds for {info['n_steps']} "
+            f"positions ({len(spec.tokens)} tokens, "
+            f"{len(spec.tokens) / max(info['n_rounds'], 1):.2f} a round); "
+            f"transcript {note}; one round {round_ms:.4f} ms (4 tiny draft "
+            f"steps + a 5-row medium window) against one greedy B=1 step "
+            f"{step_ms:.4f} ms (CUDA events over 10 replays)")
+        del target, small
+    return out
 
 
 @contextlib.contextmanager
@@ -1656,6 +1950,22 @@ def main_path_phase(card: str):
             guarded_phase(model, tok, dataset, card)
         graph_phase(model, tok, dataset, card)
         depth_phase(model, tok, dataset, card)
+        # the decoding modes on the main path: the capture pass recomputes
+        # the cross K/V, which beam search and sampling do not return
+        mode_counts = {}
+        for label, extra in (("beam 5", dict(beam_size=5)),
+                             ("sampling 0.7 x 5",
+                              dict(temperature=0.7, best_of=5))):
+            pipe = pipeline()
+            pipe.options = decoding.DecodingOptions(
+                language="en", sample_len=DECODE_LEN, **extra)
+            mode_counts[label], seen_m = drive(label, pipe, dataset,
+                                               expected(), card)
+            check(seen_m["reused"] == 0 and seen_m["float_steps"] == 0
+                  and seen_m["capture_passes"] == n_batches,
+                  f"[{label}] the capture pass did not recompute the K/V")
+        modes_phase(model, tok, dataset, card)
+        speculative_phase(model, tok, dataset, card)
         cli_counts = cli_phase(model, tok, scp, len(dataset), card)
     cli_counts["probe"] = probe_phase(model, tok, card)
     log(f"tiny model CLI, card vs CPU: {tiny_cli_phase()}")

@@ -381,3 +381,78 @@ def test_graphed_decode_equals_the_eager_loop(cuda, mode, kw, monkeypatch):
             b.tokens, b.n_steps, b.avg_logprob, b.no_speech_prob)
         assert a.min_margin == b.min_margin or (
             np.isnan(a.min_margin) and np.isnan(b.min_margin))
+
+
+def _tiny_decoder_model(cuda, seed, state=128, layers=2):
+    from whisper_char_alignment_tpu_torch.config import tiny_test_dims
+    from whisper_char_alignment_tpu_torch.text.tokenizer import \
+        get_test_tokenizer
+
+    tok = get_test_tokenizer()
+    dims = tiny_test_dims(n_vocab=tok.n_vocab, n_audio_ctx=40, n_text_ctx=48,
+                          state=state, head=2, layers=layers)
+    gen = torch.Generator().manual_seed(seed)
+    model = tw.cast_params(tw.init_params(tw.Whisper(dims, device="cpu"),
+                                          gen), torch.float32, cuda)
+    mel = torch.randn((4, dims.n_mels, 80), generator=gen).to(cuda)
+    return tok, model, mel
+
+
+def _same_results(graphed, eager):
+    for a, b in zip(graphed, eager):
+        assert (a.tokens, a.n_steps, a.avg_logprob, a.no_speech_prob,
+                a.language) == (b.tokens, b.n_steps, b.avg_logprob,
+                                b.no_speech_prob, b.language)
+
+
+@pytest.mark.parametrize("opts", [
+    dict(beam_size=5, patience=2.0), dict(beam_size=5, length_penalty=0.6,
+                                          without_timestamps=True),
+    dict(beam_size=2, language=None, prompt="alpha", prefix=[5]),
+    dict(temperature=0.7, best_of=5), dict(temperature=1.0, best_of=5)])
+def test_graphed_beam_and_sampling_equal_the_eager_loops(cuda, opts,
+                                                         monkeypatch):
+    """Beam search and sampling replayed as CUDA graphs against the same
+    loops run eagerly on the card, bit for bit (sampling: the same
+    generator seed, so the same noise); both temperatures replay one
+    graph."""
+    from whisper_char_alignment_tpu_torch.models import decode_graph, decoding
+
+    tok, model, mel = _tiny_decoder_model(cuda, 5)
+    kw = dict(dict(language="en", sample_len=16), **opts)
+    o = decoding.DecodingOptions(**kw)
+    decode_graph.reset_record()
+    graphed = decoding.decode(model, tok, mel, o)
+    record = decode_graph.replay_record()
+    assert record["captures"] == 1 and record["replays"] >= 1
+    if "temperature" in opts:
+        other = dict(kw, temperature=1.7 - opts["temperature"])
+        decoding.decode(model, tok, mel, decoding.DecodingOptions(**other))
+        assert decode_graph.replay_record()["captures"] == 1
+    monkeypatch.setattr(decoding, "runner_for",
+                        lambda dev: decoding.run_eager)
+    eager = decoding.decode(model, tok, mel, o)
+    _same_results(graphed, eager)
+
+
+def test_graphed_speculative_equals_the_eager_rounds(cuda, monkeypatch):
+    """The speculative rounds replayed as a CUDA graph against the same
+    rounds run eagerly on the card, bit for bit, with a smaller draft and
+    with the target drafting for itself."""
+    from whisper_char_alignment_tpu_torch.models import decode_graph, decoding
+
+    tok, model, mel = _tiny_decoder_model(cuda, 6)
+    _, draft, _ = _tiny_decoder_model(cuda, 7, state=64, layers=1)
+    o = decoding.DecodingOptions(language="en", sample_len=24)
+    for d in (draft, model):
+        decode_graph.reset_record()
+        graphed = decoding.decode_speculative(model, d, tok, mel[0], o,
+                                              draft_k=3, return_info=True)
+        assert decode_graph.replay_record()["captures"] == 1
+        with monkeypatch.context() as mp:
+            mp.setattr(decoding, "runner_for",
+                       lambda dev: decoding.run_eager)
+            eager = decoding.decode_speculative(model, d, tok, mel[0], o,
+                                                draft_k=3, return_info=True)
+        assert graphed[1] == eager[1]
+        _same_results([graphed[0]], [eager[0]])

@@ -117,14 +117,3 @@ def test_suppress_tokens_match_jax():
         got = tdec._get_suppress_tokens(
             tok, tdec.DecodingOptions(suppress_tokens=opt))
         assert got == want
-
-
-@pytest.mark.parametrize("opts", [
-    dict(language="en", beam_size=2), dict(language="en", temperature=0.5),
-    dict(language=None), dict(language="en", prompt="hello"),
-    dict(language="en", prefix="hello")])
-def test_unported_decoding_options_raise(setup, opts):
-    tok, _, _, model, mel = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdec.decode(model, tok, torch.from_numpy(mel),
-                    tdec.DecodingOptions(**opts), device="cpu")

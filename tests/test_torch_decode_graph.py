@@ -289,6 +289,9 @@ def test_graph_runner_counts_replays_and_reads_flags_a_chunk_behind(
         return types.SimpleNamespace(replay=replay)
 
     monkeypatch.setattr(tw, "cross_attn_step_int8", counted)
+    # the counts this test makes are its own: the process's stay as they
+    # were (tests/test_torch_quantized.py holds the CPU path to 0)
+    monkeypatch.setattr(_lib, "LAUNCHES", dict(_lib.LAUNCHES))
     want = tdec._decode_loop(*args, kv_int8=True)
     monkeypatch.setattr(decode_graph, "_warm_up", lambda fn: fn())
     monkeypatch.setattr(decode_graph, "_capture", stub_capture)

@@ -162,12 +162,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     mods = ["api", "runner", "align.metrics", "align.timing", "audio.mel",
             "audio.resample", "audio.wav", "cli.common", "cli.eval_ali",
             "cli.infer_ali", "cli.probe_oracle", "config", "constants",
-            "data.dataset", "data.synthetic", "models.convert",
-            "models.decoding", "models.whisper", "ops.cross_attn_cuda",
-            "ops.dtw", "ops.dtw_cuda", "ops.encoder_attn_cuda", "ops.medfilt",
-            "ops.mel_cuda", "ops.qkpost_cuda", "ops._lib", "text.bpe",
-            "text.numwords", "text.retokenize", "text.tokenizer",
-            "utils.device", "utils.profiling", "utils.unported", "viz.plot"]
+            "data.dataset", "data.synthetic", "models.beam", "models.convert",
+            "models.decode_graph", "models.decoding", "models.whisper",
+            "ops.cross_attn_cuda", "ops.dtw", "ops.dtw_cuda",
+            "ops.encoder_attn_cuda", "ops.medfilt", "ops.mel_cuda",
+            "ops.qkpost_cuda", "ops._lib", "text.bpe", "text.numwords",
+            "text.retokenize", "text.tokenizer", "utils.device",
+            "utils.profiling", "utils.unported", "viz.plot"]
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -1,7 +1,7 @@
-"""Greedy autoregressive transcription with Whisper's decoding rules.
+"""Autoregressive transcription with Whisper's decoding rules.
 
-Port of the greedy case of ``whisper_char_alignment_tpu/models/decoding.py``.
-Each step applies the published logit filters over the batch:
+Port of ``whisper_char_alignment_tpu/models/decoding.py``. Each step applies
+the published logit filters over the batch:
 
 1. SuppressBlank — " " and eot suppressed at the first sampled position;
 2. SuppressTokens — non-speech symbols + [transcribe, translate, sot,
@@ -11,21 +11,25 @@ Each step applies the published logit filters over the batch:
    timestamp (capped by max_initial_timestamp); and when the summed
    timestamp probability exceeds the best text token, text is suppressed.
 
-The prompt is consumed in one teacher-forced prefill pass, then one
-``decode_step`` per position until every row has emitted eot or the sample
-budget runs out. The loop's state lives on the device and a step never reads
-the host (:func:`loop_step_`; steps past the end change nothing), so on a
-card the loop replays a captured CUDA graph of a chunk of steps and reads
-one done flag a chunk (``models/decode_graph.py``, the counterpart of the
-JAX package's jitted ``while_loop``); on the CPU the same step runs eagerly
-(:func:`_decode_loop`). Beam search, temperature sampling,
-language detection and prompt/prefix conditioning are refused with
-``NotImplementedError`` (a later slice ports them).
+The prompt (the published initial tokens: an optional ``[sot_prev] +
+prompt`` block, the sot sequence, an optional forced prefix) is consumed in
+one teacher-forced prefill pass, then one ``decode_step`` per position until
+every row has emitted eot or the sample budget runs out. ``language=None``
+on a multilingual tokenizer detects each row's language first
+(:func:`detect_language`, on the decode's own encoder states). The loop's
+state lives on the device and a step never reads the host (:func:`loop_step_`;
+steps past the end change nothing), so on a card the loop replays a
+captured CUDA graph of a chunk of steps and reads one done flag a chunk
+(``models/decode_graph.py``, the counterpart of the JAX package's jitted
+``while_loop``); on the CPU the same step runs eagerly (:func:`run_eager`).
+Beam search and temperature sampling (``models/beam.py``) and the
+speculative decode (:func:`decode_speculative`) run the same way.
 
 The opt-in decode modes of the JAX package are here too: cross K/V over the
 first ``kv_frames`` encoder frames only, int8 cross K/V, and their margin
 guards, which re-decode exactly every utterance whose smallest top1-top2
-logit gap falls below the guard.
+logit gap falls below the guard. Beam search and sampling drop them, with
+the JAX package's warning.
 """
 
 from __future__ import annotations
@@ -33,12 +37,12 @@ from __future__ import annotations
 import dataclasses
 import os
 import zlib
-from typing import List, Optional, Tuple
+import warnings
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..utils.unported import not_ported
 from . import whisper as wmodel
 
 _NEG_INF = float("-inf")
@@ -192,34 +196,80 @@ def apply_logit_filters(logits: torch.Tensor, cur_len,
 
 
 def _decode_plan(dims, tokenizer, mel: torch.Tensor,
-                 options: Optional[DecodingOptions]):
-    """Host-side decode setup: the published initial token sequence,
-    sample_len clamping, suppress/blank masks and option validation.
+                 options: Optional[DecodingOptions],
+                 detect: Optional[Callable[[], List[str]]] = None):
+    """Host-side decode setup (JAX ``models/decoding.py:408-550``): language
+    detection, the published initial token sequence (sot/prefix/prompt and
+    their trimming quirks), per-row prompts, sample_len clamping,
+    suppress/blank masks and the published option validation
+    (``DecodingTask._verify_options``). ``detect()`` gives each row's
+    language code; it is called only when ``language=None`` asks for it.
 
     Returns (options, single, mel (B, ...), sample_begin, sample_len,
-    sot_index, prompt_arr, suppress_mask, blank_mask, max_initial_ts_index).
-    """
+    sot_index, prompt_arr ((P,) or (B, P) int64), suppress_mask, blank_mask,
+    max_initial_ts_index, detected_langs (a code per row, or None))."""
     options = options or DecodingOptions()
     single = mel.ndim == 2
     if single:
         mel = mel[None]
+    n = mel.shape[0]
+
+    detected_langs = None
     if (options.language is None and tokenizer.is_multilingual
             and len(tokenizer.sot_sequence) >= 2):
-        raise not_ported("language detection (language=None)", "decoding")
-    if options.prompt or options.prefix:
-        raise not_ported("prompt/prefix conditioning", "decoding")
-    if options.beam_size is not None or options.temperature > 0:
-        raise not_ported("beam search and temperature sampling", "decoding")
+        # published behaviour: detect first, then decode with each row's
+        # detected token in its sot sequence
+        detected_langs = list(detect())
 
     if options.without_timestamps:
         sot_seq = list(tokenizer.sot_sequence_including_notimestamps)
     else:
         sot_seq = list(tokenizer.sot_sequence)
     sample_len = options.sample_len or dims.n_text_ctx // 2
+    # published _get_initial_tokens: forced prefix text after the sot
+    # sequence, [sot_prev] + prompt tokens before it. Truthiness guards, as
+    # published: an empty prompt or prefix is skipped entirely
     initial = list(sot_seq)
+    if options.prefix:
+        prefix_tokens = (tokenizer.encode(" " + options.prefix.strip())
+                         if isinstance(options.prefix, str)
+                         else list(options.prefix))
+        # published quirk kept: with the default sample_len the slice is
+        # [-0:], which trims nothing
+        max_prefix_len = dims.n_text_ctx // 2 - sample_len
+        initial = initial + prefix_tokens[-max_prefix_len:]
+    prompt_rows = None  # per-row conditioning prompts
+    if options.prompt:
+        pr = options.prompt
+        if isinstance(pr, str):
+            prompt_tokens = tokenizer.encode(" " + pr.strip())
+        elif (isinstance(pr, (list, tuple))
+              and pr and isinstance(pr[0], (list, tuple, np.ndarray))):
+            # a list of per-row token lists of one length: the fixed-shape
+            # loop has one sample_begin for the batch
+            prompt_rows = [list(map(int, r)) for r in pr]
+            if not all(prompt_rows):
+                raise ValueError("per-row prompts must be non-empty; pass "
+                                 "prompt=None for promptless rows")
+            lens = {len(r) for r in prompt_rows}
+            if len(lens) != 1:
+                raise ValueError(
+                    f"per-row prompts must share one length, got "
+                    f"{sorted(lens)} — bucket by prompt length upstream")
+            if len(prompt_rows) != n:
+                raise ValueError(
+                    f"{len(prompt_rows)} per-row prompts for a batch of {n}")
+            prompt_tokens = prompt_rows[0]
+        else:
+            prompt_tokens = list(pr)
+        # published trim: the most recent n_text_ctx // 2 - 1 tokens
+        kept = prompt_tokens[-(dims.n_text_ctx // 2 - 1):]
+        prompt_keep = len(kept)
+        initial = [tokenizer.sot_prev] + kept + initial
     sample_begin = len(initial)
     sot_index = initial.index(tokenizer.sot)
     prompt_arr = np.asarray(initial, np.int64)
+    codes = tokenizer.all_language_codes
     lang_pos = sot_index + 1  # ..., sot, language, task[, notimestamps]
     lang_tok, task_tok = resolved_special_tokens(tokenizer, options.language,
                                                  options.task)
@@ -227,6 +277,17 @@ def _decode_plan(dims, tokenizer, mel: torch.Tensor,
         prompt_arr[lang_pos] = lang_tok
     if task_tok is not None and len(sot_seq) >= 3:
         prompt_arr[lang_pos + 1] = task_tok
+    if detected_langs is not None:
+        prompt_arr = np.tile(prompt_arr[None], (n, 1))
+        for i, code in enumerate(detected_langs):
+            prompt_arr[i, lang_pos] = tokenizer.sot + 1 + codes.index(code)
+    if prompt_rows is not None:
+        # each row's own tokens fill the [sot_prev] + prompt block; the sot
+        # sequence after it is shared (or carries the detected language)
+        if prompt_arr.ndim == 1:
+            prompt_arr = np.tile(prompt_arr[None], (n, 1))
+        for i, r in enumerate(prompt_rows):
+            prompt_arr[i, 1:1 + prompt_keep] = r[-prompt_keep:]
     # the decoder's learned positions end at n_text_ctx
     sample_len = max(0, min(sample_len, dims.n_text_ctx - sample_begin))
 
@@ -243,18 +304,106 @@ def _decode_plan(dims, tokenizer, mel: torch.Tensor,
         max_initial_ts_index = round(options.max_initial_timestamp / 0.02)
 
     # published option validation (whisper DecodingTask._verify_options)
+    if options.beam_size is not None and options.best_of is not None:
+        raise ValueError("beam_size and best_of can't be given together")
+    if options.temperature == 0 and options.best_of is not None:
+        raise ValueError(
+            "best_of with greedy sampling (temperature=0) is not compatible")
     if options.patience is not None and options.beam_size is None:
         raise ValueError("patience requires beam_size to be given")
+    if (options.beam_size is not None and options.patience is not None
+            and round(options.beam_size * options.patience) < 1):
+        raise ValueError(
+            f"invalid beam size ({options.beam_size}) or patience "
+            f"({options.patience}): less than one finished candidate")
     if options.length_penalty is not None and not (
             0 <= options.length_penalty <= 1):
         raise ValueError(
             "length_penalty (alpha) should be a value between 0 and 1")
-    if options.best_of is not None:
-        raise ValueError(
-            "best_of with greedy sampling (temperature=0) is not compatible")
 
     return (options, single, mel, sample_begin, sample_len, sot_index,
-            prompt_arr, suppress_mask, blank_mask, max_initial_ts_index)
+            prompt_arr, suppress_mask, blank_mask, max_initial_ts_index,
+            detected_langs)
+
+
+def prompt_rows(prompt: np.ndarray, b: int) -> torch.Tensor:
+    """The (P,) or (B, P) prompt as (B, P) int64 on the CPU."""
+    return torch.from_numpy(np.array(np.broadcast_to(
+        prompt, (b, prompt.shape[-1]))))
+
+
+class DeviceState:
+    """Mixin of a decode loop's state dataclass, every field a tensor on the
+    model's device or a dict of them (a self-attention cache): the static
+    buffers a captured graph reads and writes."""
+
+    def flat(self) -> List[torch.Tensor]:
+        """Every tensor of the state, in a fixed order."""
+        out = []
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            out.extend([v[k] for k in sorted(v)] if isinstance(v, dict)
+                       else [v])
+        return out
+
+    def clone(self):
+        def copy(v):
+            if isinstance(v, dict):
+                return {k: t.clone() for k, t in v.items()}
+            return v.clone()
+
+        return type(self)(**{f.name: copy(getattr(self, f.name))
+                             for f in dataclasses.fields(self)})
+
+
+@dataclasses.dataclass(frozen=True)
+class LoopKind:
+    """One decode loop as its runners see it (:func:`run_eager`, the CUDA
+    graph of ``models/decode_graph.py``): ``step(st, kv, slot)`` runs one
+    step in place without a host read, a step past the loop's end changing
+    no output; ``finish(st)`` sets ``st.done``; ``outputs(st)`` gives the
+    result tensors; ``refill(st, s, slot)``, where given, loads on the host
+    side what step ``s`` of the decode reads from its ``slot`` of a chunk
+    (the sampling loop's noise)."""
+    step: Callable
+    finish: Callable
+    outputs: Callable
+    refill: Optional[Callable] = None
+
+
+# Steps one chunk runs: one replay of a captured graph
+# (``models/decode_graph.py``, which says why 4), and the slots of the
+# buffers a step reads from a refill (the sampling loop's noise).
+CHUNK_STEPS = 4
+
+
+def run_eager(model, key, kind: LoopKind, st, kv, max_steps: int,
+              chunk: int = 1, keep=None):
+    """A loop run eagerly: ``chunk`` steps between host reads of
+    ``st.done``. The CPU path of every decode loop, and on a card the plain
+    version its graph is held against. Takes the graph runner's arguments
+    (``model``, ``key``, ``max_steps`` and ``keep`` go unread)."""
+    s = 0
+    while not bool(st.done):
+        for _ in range(chunk):
+            slot = s % CHUNK_STEPS
+            if kind.refill is not None:
+                kind.refill(st, s, slot)
+            kind.step(st, kv, slot)
+            s += 1
+        kind.finish(st)
+    return kind.outputs(st)
+
+
+def runner_for(device: torch.device):
+    """The runner of a loop on ``device``: the captured CUDA graph on a card
+    (``decode_graph.replay``; a failed capture raises), :func:`run_eager` on
+    the CPU."""
+    if device.type == "cuda":
+        from . import decode_graph
+
+        return decode_graph.replay
+    return run_eager
 
 
 @dataclasses.dataclass(frozen=True)
@@ -275,7 +424,7 @@ class LoopSpec:
 
 
 @dataclasses.dataclass
-class LoopState:
+class LoopState(DeviceState):
     """The greedy loop's state, every tensor on the model's device (JAX
     ``models/decoding.py:196-347`` carries the same through its
     ``while_loop``). :func:`loop_step_` updates it in place."""
@@ -293,18 +442,6 @@ class LoopState:
     blank_mask: torch.Tensor  # (V,) float32
     vocab_ids: torch.Tensor  # (V,) int64
 
-    def flat(self) -> List[torch.Tensor]:
-        """Every tensor of the state, in a fixed order."""
-        return [self.cache["k"], self.cache["v"]] + [
-            getattr(self, f.name) for f in dataclasses.fields(self)
-            if f.name != "cache"]
-
-    def clone(self) -> "LoopState":
-        return LoopState(**{
-            f.name: ({k: v.clone() for k, v in self.cache.items()}
-                     if f.name == "cache" else getattr(self, f.name).clone())
-            for f in dataclasses.fields(self)})
-
 
 def loop_setup(model, xa: torch.Tensor, prompt: np.ndarray,
                suppress_mask: torch.Tensor, blank_mask: torch.Tensor,
@@ -312,7 +449,8 @@ def loop_setup(model, xa: torch.Tensor, prompt: np.ndarray,
                kv_int8: bool = False):
     """The cross K/V (sliced to ``kv_frames`` frames, int8 ``(codes,
     scales)`` under ``kv_int8``), the prompt's one-pass prefill and the
-    loop's initial state. Returns (state, cross_kv)."""
+    loop's initial state; ``prompt`` is (P,) or per row (B, P). Returns
+    (state, cross_kv)."""
     dev = xa.device
     b = xa.shape[0]
     xa_kv = xa
@@ -325,7 +463,7 @@ def loop_setup(model, xa: torch.Tensor, prompt: np.ndarray,
                                  device=dev)
     tokens = torch.full((b, spec.total), spec.eot, dtype=torch.long,
                         device=dev)
-    tokens[:, :spec.sample_begin] = torch.from_numpy(prompt).to(dev)
+    tokens[:, :spec.sample_begin] = prompt_rows(prompt, b).to(dev)
     ns_prob = (torch.zeros(b, device=dev) if spec.no_speech is not None
                else torch.full((b,), float("nan"), device=dev))
     if spec.sample_begin >= 2:
@@ -411,13 +549,14 @@ def loop_step_(model, st: LoopState, cross_kv, spec: LoopSpec) -> None:
     st.i.add_(active.long())
 
 
-def run_chunk_(model, st: LoopState, cross_kv, spec: LoopSpec,
-               steps: int) -> None:
-    """``steps`` loop steps, then ``st.done``: the unit the eager loop runs
-    between host reads and ``models/decode_graph.py`` captures."""
-    for _ in range(steps):
-        loop_step_(model, st, cross_kv, spec)
-    st.done.copy_((st.i >= spec.total) | st.finished.all())
+def greedy_kind(model, spec: LoopSpec) -> LoopKind:
+    """The greedy loop for the runners."""
+    def finish(st: LoopState) -> None:
+        st.done.copy_((st.i >= spec.total) | st.finished.all())
+
+    return LoopKind(
+        step=lambda st, kv, slot: loop_step_(model, st, kv, spec),
+        finish=finish, outputs=loop_outputs)
 
 
 def loop_outputs(st: LoopState):
@@ -433,8 +572,8 @@ def _decode_loop(model, xa: torch.Tensor, prompt: np.ndarray,
                  spec: LoopSpec, kv_frames: Optional[int] = None,
                  kv_int8: bool = False, chunk: int = 1):
     """The greedy loop run eagerly from encoder states xa (B, n_audio_ctx,
-    d): ``chunk`` steps (:func:`run_chunk_`) between host reads of the done
-    flag. The CPU path, and on a card the plain version that
+    d): ``chunk`` steps between host reads of the done flag
+    (:func:`run_eager`). The CPU path, and on a card the plain version that
     ``models/decode_graph.py`` is held against.
 
     Returns (tokens, sum_logprobs, no_speech_probs, n_steps, cross_kv,
@@ -445,9 +584,8 @@ def _decode_loop(model, xa: torch.Tensor, prompt: np.ndarray,
     min_margin is its smallest value per row (+inf otherwise)."""
     st, cross_kv = loop_setup(model, xa, prompt, suppress_mask, blank_mask,
                               spec, kv_frames, kv_int8)
-    while not bool(st.done):
-        run_chunk_(model, st, cross_kv, spec, chunk)
-    tokens, sum_lp, ns_prob, n_steps, margin = loop_outputs(st)
+    tokens, sum_lp, ns_prob, n_steps, margin = run_eager(
+        model, None, greedy_kind(model, spec), st, cross_kv, 0, chunk)
     return tokens, sum_lp, ns_prob, n_steps, cross_kv, margin
 
 
@@ -504,34 +642,75 @@ def decode(model, tokenizer, mel: torch.Tensor,
            kv_frames: Optional[int] = None, kv_int8: bool = False,
            kv_int8_guard: Optional[float] = None,
            kv_frames_guard: Optional[float] = None,
-           async_results: bool = False):
+           async_results: bool = False,
+           generator: Optional[torch.Generator] = None):
     """Transcribe a batch of mels (B, n_mels, 2*n_audio_ctx), or one
     (n_mels, frames). Returns one DecodingResult per utterance (a single
     result for unbatched input). ``return_xa`` adds the encoder states
     (``(results, xa)``); ``return_cross_kv`` adds them and the loop's cross
-    K/V stacks (``(results, xa, cross_kv)``) for reuse by the capture pass.
-    ``xa`` supplies precomputed encoder states and skips the encoder. With
+    K/V stacks (``(results, xa, cross_kv)``) for reuse by the capture pass,
+    None after beam search or sampling (their rows are repeated). ``xa``
+    supplies precomputed encoder states and skips the encoder. With
     ``async_results`` the results slot holds a :class:`DecodeFuture` (call
     ``.result()``) whose host copies are in flight.
 
-    On a CUDA model the greedy loop replays a captured CUDA graph
-    (``models/decode_graph.py``), reading the host once per chunk of steps;
-    on the CPU it runs eagerly (:func:`_decode_loop`).
+    Every option of :class:`DecodingOptions` runs: ``language=None`` detects
+    each row's language (:func:`detect_language` on xa); ``prompt`` (a
+    string, a token list, or equal-length token lists per row) and
+    ``prefix``; ``beam_size`` with ``patience`` and ``length_penalty``, and
+    ``temperature > 0`` with ``best_of`` (``models/beam.py``), whose
+    Gumbel noise ``generator`` draws (a generator on the model's device
+    seeded 0 when None, as the JAX package's ``rng`` defaults to
+    ``PRNGKey(0)``; the numbers differ from JAX's).
 
-    Opt-in modes, none equal to the reference: ``kv_frames`` attends over
-    the first kv_frames encoder frames only; ``kv_int8`` stores the cross
-    K/V as int8 (its step runs as ``WCA_CROSS_ATTN`` says). The guards
-    ``kv_int8_guard`` / ``kv_frames_guard`` (logit margins) track each
-    sampled step's top1-top2 gap; rows whose smallest gap falls below the
-    sum of the active guards are re-decoded, reusing xa, with the guarded
-    modes off, and merged in (at ``.result()`` under ``async_results``, as
-    the JAX package's ``finalize`` does). ``kv_int8_guard`` implies
-    ``kv_int8``; ``kv_frames_guard`` needs ``kv_frames``."""
+    On a CUDA model every loop replays a captured CUDA graph
+    (``models/decode_graph.py``), reading the host once per chunk of steps;
+    on the CPU it runs eagerly (:func:`run_eager`).
+
+    Opt-in modes of the greedy loop, none equal to the reference:
+    ``kv_frames`` attends over the first kv_frames encoder frames only;
+    ``kv_int8`` stores the cross K/V as int8 (its step runs as
+    ``WCA_CROSS_ATTN`` says). The guards ``kv_int8_guard`` /
+    ``kv_frames_guard`` (logit margins) track each sampled step's top1-top2
+    gap; rows whose smallest gap falls below the sum of the active guards
+    are re-decoded, reusing xa, with the guarded modes off, and merged in
+    (at ``.result()`` under ``async_results``, as the JAX package's
+    ``finalize`` does). ``kv_int8_guard`` implies ``kv_int8``;
+    ``kv_frames_guard`` needs ``kv_frames``. Beam search and sampling drop
+    all four with a warning, as the JAX package does."""
     dev = wmodel._check_device(model, device)
     dims = model.dims
+    if xa is None:
+        xa = wmodel.encode_audio(model, (mel[None] if mel.ndim == 2
+                                         else mel).to(dev), device=dev.type)
     (options, single, mel, sample_begin, sample_len, sot_index, prompt_arr,
-     suppress_mask, blank_mask, max_initial_ts_index) = _decode_plan(
-         dims, tokenizer, mel, options)
+     suppress_mask, blank_mask, max_initial_ts_index, detected) = \
+        _decode_plan(dims, tokenizer, mel, options,
+                     detect=lambda: [c for c, _ in detect_language(
+                         model, tokenizer, xa=xa, device=dev.type)])
+    langs = detected or [_language(tokenizer, options)] * mel.shape[0]
+    suppress_t = torch.from_numpy(suppress_mask).to(dev)
+    blank_t = torch.from_numpy(blank_mask).to(dev)
+
+    if options.beam_size is not None or options.temperature > 0:
+        if (kv_frames is not None or kv_int8 or kv_int8_guard is not None
+                or kv_frames_guard is not None):
+            warnings.warn(
+                "kv_frames / kv_int8 are greedy-decode-only speedups; "
+                "falling back to the full-window un-quantized path for "
+                "beam/sampling decoding", stacklevel=2)
+        from . import beam
+
+        future = beam.run(
+            model, tokenizer, xa, options, prompt_arr, suppress_t, blank_t,
+            sample_begin=sample_begin, sample_len=sample_len,
+            sot_index=sot_index, max_initial_ts_index=max_initial_ts_index,
+            langs=langs, single=single, generator=generator)
+        out = future if async_results else future.result()
+        if return_cross_kv:
+            return out, xa, None
+        return (out, xa) if return_xa else out
+
     if kv_int8_guard is not None:
         kv_int8 = True  # the guard is a mode of the int8 path
     if kv_frames_guard is not None and kv_frames is None:
@@ -542,10 +721,6 @@ def decode(model, tokenizer, mel: torch.Tensor,
     guard = ((kv_int8_guard or 0.0) + (kv_frames_guard or 0.0)
              if (kv_int8_guard is not None or kv_frames_guard is not None)
              else None)
-    if xa is None:
-        xa = wmodel.encode_audio(model, mel.to(dev), device=dev.type)
-    suppress_t = torch.from_numpy(suppress_mask).to(dev)
-    blank_t = torch.from_numpy(blank_mask).to(dev)
     loop_fn = _loop_for(dev)
 
     def loop(frames, int8, track):
@@ -578,9 +753,11 @@ def decode(model, tokenizer, mel: torch.Tensor,
                 tokens = np.where(flagged[:, None], et.cpu().numpy(), tokens)
                 sum_lp = np.where(flagged, es.cpu().numpy(), sum_lp)
                 ns_prob = np.where(flagged, en.cpu().numpy(), ns_prob)
-        return _results(tokenizer, options, single, sample_begin, tokens,
-                        sum_lp, ns_prob, int(n_steps[0]),
-                        margin if guard is not None else None)
+        rows = [trim(tokens[k], sample_begin, tokenizer.eot)
+                for k in range(tokens.shape[0])]
+        return results(tokenizer, options, single, rows, list(sum_lp),
+                       ns_prob, int(n_steps[0]), langs,
+                       margin if guard is not None else None)
 
     future = DecodeFuture((tokens, sum_lp, ns_prob, n_steps, margin),
                           finalize)
@@ -590,27 +767,370 @@ def decode(model, tokenizer, mel: torch.Tensor,
     return (out, xa) if return_xa else out
 
 
-def _results(tokenizer, options: DecodingOptions, single: bool,
-             sample_begin: int, tokens: np.ndarray, sum_lp: np.ndarray,
-             ns_prob: np.ndarray, n_steps: int,
-             margin: Optional[np.ndarray]):
-    """One DecodingResult per row of the loop's host outputs (a single
-    result for unbatched input)."""
+def _language(tokenizer, options: DecodingOptions) -> str:
+    """The language code a result reports when none was detected: the
+    resolved option ("English" -> "en"), else the tokenizer's."""
     from ..text.tokenizer import normalize_language
 
-    lang = normalize_language(options.language) or (tokenizer.language or "en")
-    results = []
-    for k in range(tokens.shape[0]):
-        seq = tokens[k, sample_begin:].tolist()
-        if tokenizer.eot in seq:
-            seq = seq[:seq.index(tokenizer.eot)]
+    return normalize_language(options.language) or (tokenizer.language
+                                                     or "en")
+
+
+def trim(seq: np.ndarray, sample_begin: int, eot: int) -> List[int]:
+    """The sampled tokens of one row: after the prompt, up to its first
+    eot."""
+    out = [int(t) for t in seq[sample_begin:]]
+    return out[:out.index(eot)] if eot in out else out
+
+
+def results(tokenizer, options: DecodingOptions, single: bool,
+            seqs: List[List[int]], sum_lps, ns_prob, n_steps: int,
+            langs: List[str], margin: Optional[np.ndarray] = None):
+    """One DecodingResult per row's sampled tokens and summed log-prob (a
+    single result for unbatched input): ``avg_logprob = sum_lp / (len +
+    1)``, as published."""
+    out = []
+    for k, seq in enumerate(seqs):
         text = tokenizer.decode(seq).strip()
-        avg_lp = sum_lp[k] / (len(seq) + 1)
         ratio = len(text.encode()) / max(len(zlib.compress(text.encode())), 1)
-        results.append(DecodingResult(
-            language=lang, tokens=seq, text=text, avg_logprob=float(avg_lp),
+        out.append(DecodingResult(
+            language=langs[k], tokens=seq, text=text,
+            avg_logprob=float(sum_lps[k] / (len(seq) + 1)),
             no_speech_prob=float(ns_prob[k]), temperature=options.temperature,
             compression_ratio=ratio, n_steps=n_steps,
             min_margin=(float(margin[k]) if margin is not None
                         else float("nan"))))
-    return results[0] if single else results
+    return out[0] if single else out
+
+
+@torch.no_grad()
+def detect_language(model, tokenizer, mel: Optional[torch.Tensor] = None,
+                    xa: Optional[torch.Tensor] = None, device=None):
+    """Single-step language identification (JAX ``models/decoding.py:
+    734-758``, the published ``detect_language``): feed sot, take the
+    argmax and the softmax over the tokenizer's language tokens. Returns
+    ``(code, {code: probability})`` per row (one pair for an unbatched
+    mel). ``xa`` supplies the encoder states, which skips the encoder (the
+    JAX package encodes the mel again; the result is the same)."""
+    dev = wmodel._check_device(model, device)
+    single = xa is None and mel.ndim == 2
+    if xa is None:
+        xa = wmodel.encode_audio(model, (mel[None] if single else mel).to(dev),
+                                 device=dev.type)
+    b = xa.shape[0]
+    cross_kv = wmodel.precompute_cross_kv(model, xa)
+    cache = wmodel.init_kv_cache(model.dims, b, 1, dtype=model.dtype,
+                                 device=dev)
+    sot = torch.full((b, 1), tokenizer.sot, dtype=torch.long, device=dev)
+    logits, _ = wmodel.decode_step(model, sot, 0, cache, cross_kv)
+    lang_logits = logits.index_select(1, torch.tensor(
+        tokenizer.all_language_tokens, dtype=torch.long, device=dev))
+    probs = torch.softmax(lang_logits, dim=-1).cpu().numpy()
+    idx = lang_logits.argmax(dim=-1).cpu().numpy()
+    codes = tokenizer.all_language_codes
+    out = [(codes[i], {c: float(probs[r, j]) for j, c in enumerate(codes)})
+           for r, i in enumerate(idx)]
+    return out[0] if single else out
+
+
+# ---------------------------------------------------------------------------
+# Speculative greedy decoding (a draft model proposes, one window verifies)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SpeculativeSpec:
+    """What every round of one speculative decode does (Python values)."""
+    sample_begin: int
+    total: int
+    k: int  # draft tokens a round
+    ts_begin: int
+    eot: int
+    no_timestamps: int
+    no_speech: Optional[int]
+    max_initial_ts_index: Optional[int]
+    use_timestamps: bool
+    sot_index: int
+
+    @property
+    def buf(self) -> int:
+        """Token and cache columns: a round's draft and window writes may
+        run k + 1 past the budget."""
+        return self.total + self.k + 1
+
+
+@dataclasses.dataclass
+class SpeculativeState(DeviceState):
+    """The speculative loop's state (JAX ``models/decoding.py:945-948``),
+    every tensor on the device; B = 1."""
+    tokens: torch.Tensor  # (1, buf) int64: committed, then draft residue
+    cache_t: wmodel.Cache  # the target's self-attention K/V
+    cache_d: wmodel.Cache  # the draft's
+    L: torch.Tensor  # (1,) int64: committed length
+    finished: torch.Tensor  # (1,) bool
+    sum_lp: torch.Tensor  # (1,) float32
+    has_ts: torch.Tensor  # (1,) bool
+    last_ts_tok: torch.Tensor  # (1,) int64
+    ns_prob: torch.Tensor  # (1,) float32
+    n_rounds: torch.Tensor  # (1,) int64
+    done: torch.Tensor  # (1,) bool
+    suppress_mask: torch.Tensor
+    blank_mask: torch.Tensor
+    vocab_ids: torch.Tensor
+    pos_t: torch.Tensor  # (buf, d) the target's positions, zero past ctx
+    pos_d: torch.Tensor  # the draft's
+
+
+def _padded_positions(model, n: int) -> torch.Tensor:
+    """The learned position table zero-padded to ``n`` rows (JAX's
+    ``_pad_pos``): a window near the budget's end may reach positions past
+    n_text_ctx, whose logits the commit clamp discards."""
+    pe = model.decoder.positional_embedding.detach()
+    if pe.shape[0] >= n:
+        return pe.clone()
+    return torch.cat([pe, pe.new_zeros(n - pe.shape[0], pe.shape[1])])
+
+
+def speculative_setup(model, draft, xa: torch.Tensor, xa_d: torch.Tensor,
+                      prompt: np.ndarray, suppress_mask: torch.Tensor,
+                      blank_mask: torch.Tensor, spec: SpeculativeSpec):
+    """Both models' cross K/V, both prompt prefills and the initial state.
+    Returns (state, (target cross K/V, draft cross K/V))."""
+    dev = xa.device
+    buf = spec.buf
+    cross_t = wmodel.precompute_cross_kv(model, xa)
+    cross_d = wmodel.precompute_cross_kv(draft, xa_d)
+    cache_t = wmodel.init_kv_cache(model.dims, 1, buf, dtype=model.dtype,
+                                   device=dev)
+    cache_d = wmodel.init_kv_cache(draft.dims, 1, buf, dtype=draft.dtype,
+                                   device=dev)
+    tokens = torch.full((1, buf), spec.eot, dtype=torch.long, device=dev)
+    tokens[:, :spec.sample_begin] = prompt_rows(prompt, 1).to(dev)
+    ns_prob = (torch.zeros(1, device=dev) if spec.no_speech is not None
+               else torch.full((1,), float("nan"), device=dev))
+    if spec.sample_begin >= 2:
+        ns_at = (spec.sot_index if (spec.no_speech is not None
+                                    and spec.sot_index < spec.sample_begin - 1)
+                 else None)
+        pf_logits, cache_t = wmodel.decode_prefill(
+            model, tokens[:, :spec.sample_begin - 1], cache_t, cross_t,
+            logits_at=ns_at, cross_mode="xla")
+        wmodel.decode_prefill(draft, tokens[:, :spec.sample_begin - 1],
+                              cache_d, cross_d, cross_mode="xla")
+        if ns_at is not None:
+            ns_prob = torch.softmax(pf_logits, dim=-1)[:, spec.no_speech]
+    zero = torch.zeros(1, dtype=torch.long, device=dev)
+    state = SpeculativeState(
+        tokens=tokens, cache_t=cache_t, cache_d=cache_d,
+        L=torch.full((1,), spec.sample_begin, dtype=torch.long, device=dev),
+        finished=torch.zeros(1, dtype=torch.bool, device=dev),
+        sum_lp=torch.zeros(1, device=dev),
+        has_ts=torch.zeros(1, dtype=torch.bool, device=dev),
+        last_ts_tok=zero.clone(), ns_prob=ns_prob, n_rounds=zero.clone(),
+        done=torch.full((1,), spec.sample_begin >= spec.total,
+                        dtype=torch.bool, device=dev),
+        suppress_mask=suppress_mask.to(dev), blank_mask=blank_mask.to(dev),
+        vocab_ids=torch.arange(model.dims.n_vocab, device=dev),
+        pos_t=_padded_positions(model, buf),
+        pos_d=_padded_positions(draft, buf))
+    return state, (cross_t, cross_d)
+
+
+def speculative_round_(model, draft, st: SpeculativeState, kv,
+                       spec: SpeculativeSpec) -> None:
+    """One round in place, without a host read (JAX ``models/decoding.py:
+    860-943``): the draft proposes ``k`` greedy tokens, the target scores
+    the window [t_{L-1}, d_0 .. d_{k-1}] in one :func:`decode_window` pass,
+    and the longest prefix of drafts equal to the target's own filtered
+    argmax is committed with the target's token after it. A round past the
+    loop's end (JAX's ``cond``) changes no output: it writes only token and
+    cache columns at or past ``L``."""
+    cross_t, cross_d = kv
+    k, buf, total, eot = spec.k, spec.buf, spec.total, spec.eot
+    dev = st.tokens.device
+    active = (st.L < total) & ~st.finished.all()
+
+    def filters(logits, pos, has_ts, last_ts):
+        return apply_logit_filters(
+            logits, pos, st.tokens, has_ts, last_ts, st.suppress_mask,
+            st.blank_mask, st.vocab_ids, sample_begin=spec.sample_begin,
+            ts_begin=spec.ts_begin, eot=eot,
+            no_timestamps=spec.no_timestamps,
+            max_initial_ts_index=spec.max_initial_ts_index,
+            use_timestamps=spec.use_timestamps)
+
+    # draft: k autoregressive steps under the same filters, written in place
+    # after the committed tokens
+    d_has, d_last = st.has_ts, st.last_ts_tok
+    for j in range(k):
+        pos = st.L - 1 + j
+        lg, _ = wmodel.decode_step(draft, st.tokens.index_select(1, pos), pos,
+                                   st.cache_d, cross_d, cross_mode="xla",
+                                   pos_emb=st.pos_d)
+        d_tok = filters(lg, pos + 1, d_has, d_last).argmax(dim=-1)
+        is_ts = d_tok >= spec.ts_begin
+        d_has = d_has | is_ts
+        d_last = torch.where(is_ts, d_tok, d_last)
+        st.tokens.index_copy_(1, pos + 1, d_tok[:, None])
+
+    # verify: one target pass over the window
+    start = st.L - 1
+    window = st.tokens.index_select(
+        1, start + torch.arange(k + 1, device=dev))
+    logits_w, _ = wmodel.decode_window(model, window, start, st.cache_t,
+                                       cross_t, cross_mode="xla",
+                                       pos_emb=st.pos_t)
+    ns_prob = st.ns_prob
+    if spec.no_speech is not None:
+        ns_prob = torch.where(
+            active & (st.L == spec.sot_index + 1),
+            torch.softmax(logits_w[:, 0], dim=-1)[:, spec.no_speech],
+            ns_prob)
+    # the target's own greedy choice at each window position, teacher-forced
+    # along the drafted prefix
+    s_has, s_last = st.has_ts, st.last_ts_tok
+    g, match, lp, hs, ls = [], [], [], [], []
+    for jj in range(k + 1):
+        pos = st.L + jj
+        f = filters(logits_w[:, jj], pos, s_has, s_last)
+        gj = f.argmax(dim=-1)
+        d_tok = st.tokens.index_select(1, pos.clamp(max=buf - 1))[:, 0]
+        is_ts = gj >= spec.ts_begin
+        s_has = s_has | is_ts
+        s_last = torch.where(is_ts, gj, s_last)
+        g.append(gj)
+        match.append(gj == d_tok)
+        lp.append(f.amax(dim=-1) - torch.logsumexp(f, dim=-1))
+        hs.append(s_has)
+        ls.append(s_last)
+    g, match, lp = torch.cat(g), torch.cat(match), torch.cat(lp)
+    hs, ls = torch.cat(hs), torch.cat(ls)
+    # acceptance: the longest matching draft prefix, then the target's token
+    # at the first mismatch (or the bonus token when all k match)
+    idx = torch.arange(k + 1, device=dev)
+    no_match = ~match | (idx == k)
+    m = no_match.long().argmax()
+    is_eot = (g == eot) & (idx <= m)
+    any_eot = is_eot.any()
+    e = torch.where(any_eot, is_eot.long().argmax(), m).reshape(1)
+    room = total - st.L  # (1,)
+    c = torch.minimum(e + 1, room)  # committed this round
+    finished = st.finished | (any_eot & (e + 1 <= room))
+    at = st.L + e
+    st.tokens.index_copy_(1, at, torch.where(
+        active, g.index_select(0, e), st.tokens.index_select(1, at)[:, 0]
+    )[:, None])
+    last = (c - 1).clamp(min=0)  # c >= 1 in an active round
+    sum_lp = st.sum_lp + torch.where(idx < c, lp, 0.0).sum()
+    for old, new in ((st.finished, finished), (st.sum_lp, sum_lp),
+                     (st.has_ts, hs.index_select(0, last)),
+                     (st.last_ts_tok, ls.index_select(0, last)),
+                     (st.ns_prob, ns_prob)):
+        old.copy_(torch.where(active, new, old))
+    st.L.add_(torch.where(active, c, 0))
+    st.n_rounds.add_(active.long())
+
+
+def speculative_kind(model, draft, spec: SpeculativeSpec) -> LoopKind:
+    """The speculative loop for the runners: a step is one round."""
+    def finish(st: SpeculativeState) -> None:
+        st.done.copy_((st.L >= spec.total) | st.finished.all())
+
+    def outputs(st: SpeculativeState):
+        # uncommitted draft and window residue past the final length -> eot
+        cols = torch.arange(spec.buf, device=st.tokens.device)
+        tokens = torch.where(cols[None] < st.L, st.tokens, spec.eot)
+        return (tokens[:, :spec.total], st.sum_lp, st.ns_prob, st.L - 1,
+                st.n_rounds)
+
+    return LoopKind(
+        step=lambda st, kv, slot: speculative_round_(model, draft, st, kv,
+                                                     spec),
+        finish=finish, outputs=outputs)
+
+
+@torch.no_grad()
+def _speculative_loop(model, draft, xa: torch.Tensor, xa_d: torch.Tensor,
+                      prompt: np.ndarray, suppress_mask: torch.Tensor,
+                      blank_mask: torch.Tensor, spec: SpeculativeSpec):
+    """The speculative loop from both models' encoder states, run by
+    :func:`runner_for` the device (a captured graph of rounds on a card,
+    :func:`run_eager` on the CPU). Returns (tokens (1, total), sum_lp (1,),
+    ns_prob (1,), n_steps (1,), n_rounds (1,))."""
+    st, kv = speculative_setup(model, draft, xa, xa_d, prompt, suppress_mask,
+                               blank_mask, spec)
+    run = runner_for(xa.device)
+    key = ("speculative", spec, id(draft), xa.shape[1], xa_d.shape[1],
+           model.dtype, draft.dtype)
+    # each round commits at least one token
+    return run(model, key, speculative_kind(model, draft, spec), st, kv,
+               spec.total - spec.sample_begin, keep=draft)
+
+
+@torch.no_grad()
+def decode_speculative(model, draft, tokenizer, mel: torch.Tensor,
+                       options: Optional[DecodingOptions] = None,
+                       draft_k: int = 4, return_info: bool = False,
+                       device=None):
+    """Greedy :func:`decode` accelerated by a draft model (JAX
+    ``models/decoding.py:956-1042``): the draft (a smaller Whisper sharing
+    the tokenizer) proposes ``draft_k`` tokens a round, the target verifies
+    them in one :func:`whisper.decode_window` pass and commits the longest
+    prefix that matches its own greedy choices, plus one token of its own.
+    The transcript is greedy's but for the float order of a window's
+    products against a step's (a near-tie may flip).
+
+    One utterance (mel (n_mels, F) or (1, n_mels, F)), greedy options only.
+    On a CUDA model the rounds replay a captured CUDA graph.
+    ``return_info=True`` appends ``{"n_rounds", "n_steps"}``."""
+    dims, draft_dims = model.dims, draft.dims
+    if dims.n_vocab != draft_dims.n_vocab:
+        raise ValueError(
+            f"draft vocab {draft_dims.n_vocab} != target {dims.n_vocab}: the "
+            "draft must share the target's tokenizer")
+    if dims.n_mels != draft_dims.n_mels:
+        raise ValueError(
+            f"draft n_mels {draft_dims.n_mels} != target {dims.n_mels}: pick "
+            "a draft with the target's mel frontend")
+    if draft_k < 1:
+        raise ValueError(f"draft_k must be >= 1, got {draft_k}")
+    dev = wmodel._check_device(model, device)
+    wmodel._check_device(draft, dev.type)
+    mel3 = (mel[None] if mel.ndim == 2 else mel).to(dev)
+    xa = wmodel.encode_audio(model, mel3, device=dev.type)
+    (options, single, mel, sample_begin, sample_len, sot_index, prompt_arr,
+     suppress_mask, blank_mask, max_initial_ts_index, detected) = \
+        _decode_plan(dims, tokenizer, mel, options,
+                     detect=lambda: [c for c, _ in detect_language(
+                         model, tokenizer, xa=xa, device=dev.type)])
+    if mel.shape[0] != 1:
+        raise ValueError(
+            f"decode_speculative is single-utterance (got batch "
+            f"{mel.shape[0]}); batched alignment uses the exact loop")
+    if options.beam_size is not None or options.best_of is not None \
+            or options.temperature > 0:
+        raise ValueError("decode_speculative is greedy-only: beam/best_of/"
+                         "temperature>0 use decode()")
+    spec = SpeculativeSpec(
+        sample_begin=sample_begin, total=sample_begin + sample_len,
+        k=int(draft_k), ts_begin=tokenizer.timestamp_begin,
+        eot=tokenizer.eot, no_timestamps=tokenizer.no_timestamps,
+        no_speech=tokenizer.no_speech,
+        max_initial_ts_index=max_initial_ts_index,
+        use_timestamps=not options.without_timestamps, sot_index=sot_index)
+    xa_d = wmodel.encode_audio(draft, mel3, device=dev.type)
+    tokens, sum_lp, ns_prob, n_steps, n_rounds = _speculative_loop(
+        model, draft, xa, xa_d, prompt_arr,
+        torch.from_numpy(suppress_mask).to(dev),
+        torch.from_numpy(blank_mask).to(dev), spec)
+    tokens, sum_lp, ns_prob = (t.cpu().numpy() for t in (tokens, sum_lp,
+                                                         ns_prob))
+    n_steps, n_rounds = int(n_steps[0]), int(n_rounds[0])
+    langs = detected or [_language(tokenizer, options)]
+    result = results(tokenizer, options, False,
+                     [trim(tokens[0], sample_begin, tokenizer.eot)], sum_lp,
+                     ns_prob, n_steps, langs)
+    if single:
+        result = result[0]
+    if return_info:
+        return result, {"n_rounds": n_rounds, "n_steps": n_steps}
+    return result

@@ -548,7 +548,8 @@ def _as_position(pos, device) -> torch.Tensor:
 
 @torch.no_grad()
 def decode_step(model: Whisper, tokens: torch.Tensor, pos, cache: Cache,
-                cross_kv, cross_mode: Optional[str] = None):
+                cross_kv, cross_mode: Optional[str] = None,
+                pos_emb: Optional[torch.Tensor] = None):
     """One autoregressive decoder step: tokens (B, 1) at position ``pos``, a
     Python int or a (1,) int64 tensor on the model's device; ``cache`` holds
     self-attention K/V for positions < pos and gains column ``pos`` in place.
@@ -557,13 +558,15 @@ def decode_step(model: Whisper, tokens: torch.Tensor, pos, cache: Cache,
     position is never read on the host: the step is capturable in a CUDA
     graph (``models/decode_graph.py``).
     ``cross_mode=None`` resolves ``WCA_CROSS_ATTN`` (:func:`cross_attn_mode`);
-    it matters only for int8 cross K/V."""
+    it matters only for int8 cross K/V. ``pos_emb`` replaces the learned
+    position table (the speculative loop's, zero-padded past n_text_ctx)."""
     if cross_mode is None:
         cross_mode = cross_attn_mode(model.device)
     dec = model.decoder
+    table = dec.positional_embedding if pos_emb is None else pos_emb
     pos = _as_position(pos, tokens.device)
     x = (dec.token_embedding.weight.index_select(0, tokens[:, 0])
-         + dec.positional_embedding.index_select(0, pos))[:, None, :]
+         + table.index_select(0, pos))[:, None, :]
     mask = _position_mask(pos, cache["k"].shape[-1])
     x = _cached_layers(model, x, cache, cross_kv, pos, mask,
                        cross_mode=cross_mode, step=True)
@@ -593,3 +596,32 @@ def decode_prefill(model: Whisper, tokens: torch.Tensor, cache: Cache,
     if logits_at is None:
         return None, cache
     return _logits(model, _layer_norm(dec.ln, x[:, logits_at])), cache
+
+
+@torch.no_grad()
+def decode_window(model: Whisper, tokens: torch.Tensor, start, cache: Cache,
+                  cross_kv, cross_mode: Optional[str] = None,
+                  pos_emb: Optional[torch.Tensor] = None):
+    """Teacher-forced pass over a window of P tokens (B, P) at positions
+    ``start .. start+P-1`` (JAX ``models/whisper.py:951-1062``), ``start`` a
+    Python int or a (1,) int64 tensor on the model's device, never read on
+    the host. Writes the P cache columns in place and returns (logits (B, P,
+    vocab) f32, cache); row t attends to cache columns <= start+t under the
+    mask of :func:`decode_step`, so each row computes what a step at its
+    position computes. The speculative decode's verifier
+    (``decoding.decode_speculative``). The positions must lie in the
+    position table: ``pos_emb`` gives one padded past n_text_ctx (the JAX
+    package clamps the window's start instead)."""
+    if cross_mode is None:
+        cross_mode = cross_attn_mode(model.device)
+    dec = model.decoder
+    table = dec.positional_embedding if pos_emb is None else pos_emb
+    b, p = tokens.shape
+    rows = (_as_position(start, tokens.device)
+            + torch.arange(p, device=tokens.device))
+    x = (dec.token_embedding.weight.index_select(0, tokens.reshape(-1))
+         .reshape(b, p, -1) + table.index_select(0, rows))
+    x = _cached_layers(model, x, cache, cross_kv, rows,
+                       _position_mask(rows, cache["k"].shape[-1]),
+                       cross_mode=cross_mode)
+    return _logits(model, _layer_norm(dec.ln, x)), cache

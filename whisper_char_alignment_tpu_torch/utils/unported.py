@@ -7,7 +7,6 @@ lacks is refused loudly and never silently ignored.
 from __future__ import annotations
 
 ROADMAP_ITEMS = {
-    "decoding": "ROADMAP.md queue 1, item 4 (decoding modes)",
     "quantized": "ROADMAP.md queue 1, item 7 (int8 encoder)",
     "parallel": "ROADMAP.md queue 1, item 9 (multi-GPU)",
 }
