@@ -78,7 +78,25 @@ Phases (any failure exits non-zero and prints no final line):
    ``draft_k`` 4, one utterance) graphed against eager in bf16 and f32,
    its f32 transcript against greedy's (a difference passes only at a
    top1-top2 gap below 1e-4), its round time beside a greedy B=1 step.
-4. A JSON line of per-kernel numbers, then
+4. Long-form transcription and serving at Whisper-medium width, each path
+   with its launch counts set to 0 just before it and equal just after it
+   to the counts of what it executed (the encoder kernel per layer for
+   each decode, detect and word-timing request, the QK post-process per
+   decoder layer and the DTW kernels per word-timing capture), every DTW
+   held against the NumPy oracle: ``transcribe`` of 65 s of speech-like
+   audio (three windows, the whole fallback ladder, conditioning,
+   ``language=None``, word timestamps, 64 steps a rung), graphed against
+   the eager loops field for field, floats bit for bit, and with top-k
+   word timing; ``transcribe_batched`` of 4 audios of 35-40 s against
+   their solo runs; ``cli.transcribe`` with every output format at
+   medium width, and ``--test_model`` on ``sample/test.wav`` on the card
+   and the CPU with equal files; an in-process ``serve`` with its warmups
+   (8 concurrent /align in one batch and 4 concurrent /transcribe, each
+   equal to its solo answer, a 413, no graph of a warmed shape captured
+   after the warmups). Logs windows, rungs, graph captures and their
+   seconds, the real-time factor, /align req/s and p50/p95 latency, and
+   peak device memory.
+5. A JSON line of per-kernel numbers, then
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -1874,6 +1892,677 @@ def tiny_cli_phase() -> str:
             f"and the CPU")
 
 
+# ---------------------------------------------------------------------------
+# phase 4: long-form transcription, its CLI, and the HTTP server
+# ---------------------------------------------------------------------------
+
+# the long-form options the smoke holds: the decode budget per rung (random
+# weights fail the published gates, so every window climbs all six rungs)
+LONG_SAMPLE_LEN = 64
+LONG_SECONDS = 65.0
+
+
+def vocab_tokenizer(n_vocab: int):
+    """The toy tokenizer with its text vocabulary padded to the model's: as
+    in Whisper's own tokenizer, the specials and the 1501 timestamps are the
+    top ids of the model's vocabulary (with the bare toy vocabulary, the
+    medium model's ids past it would read as timestamps far beyond 30 s and
+    end a window's seek loop at once). The filler tokens are words, a space
+    and five letters, so a random transcript reads as words."""
+    from whisper_char_alignment_tpu_torch.text.bpe import ByteBPE, toy_ranks
+    from whisper_char_alignment_tpu_torch.text.tokenizer import (
+        N_TIMESTAMPS, WhisperTokenizer)
+
+    ranks = toy_ranks()
+    n_text = n_vocab - 2 - 99 - 6 - N_TIMESTAMPS
+    k = 0
+    while len(ranks) < n_text:
+        word = bytes(97 + (k // 26 ** i) % 26 for i in range(5))
+        ranks[b" " + word] = len(ranks)
+        k += 1
+    tok = WhisperTokenizer(ByteBPE(ranks))
+    check(tok.n_vocab == n_vocab, f"padded tokenizer: {tok.n_vocab} ids")
+    return tok
+
+
+def speech_like(seconds: float, seed: int):
+    """Synthetic speech-like audio at 16 kHz: a gliding 110-190 Hz voice
+    with five harmonics under a 4 Hz syllable envelope, phrases broken by
+    pauses, and a little noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = int(16000 * seconds)
+    t = np.arange(n) / 16000.0
+    pitch = 150.0 + 40.0 * np.sin(2 * np.pi * 0.3 * t + rng.uniform(0, 6.3))
+    phase = 2 * np.pi * np.cumsum(pitch) / 16000.0
+    voice = sum(np.sin(k * phase) / k for k in range(1, 6))
+    syllables = np.clip(np.sin(2 * np.pi * 4.0 * t + rng.uniform(0, 6.3)),
+                        0.0, None)
+    phrases = np.sin(2 * np.pi * t / 5.0 + rng.uniform(0, 6.3)) > -0.6
+    return (0.1 * voice * syllables * phrases
+            + rng.normal(0, 0.005, n)).astype(np.float32)
+
+
+@contextlib.contextmanager
+def long_form_spies(log_: dict):
+    """Record, while the block runs, what the long-form path executed: each
+    encoder run (``whisper.encode_audio``), each seek-loop request run
+    solo (kind, window seed, temperature), each decode (rows), each
+    teacher-forced capture (``timing.get_attentions``), each word-timing
+    window, each DTW call (kept for the NumPy oracle) and each CUDA graph
+    capture with its host seconds."""
+    from whisper_char_alignment_tpu_torch import transcribe as T
+    from whisper_char_alignment_tpu_torch.align import timing
+    from whisper_char_alignment_tpu_torch.models import decode_graph, decoding
+    from whisper_char_alignment_tpu_torch.models import whisper as wm
+
+    encode, execute, decode, attentions, words = (
+        wm.encode_audio, T._execute_request, decoding.decode,
+        timing.get_attentions, T._window_word_timings)
+    captured = decode_graph._Captured
+    for k in ("encodes", "captures", "word_s", "graph_s"):
+        log_.setdefault(k, 0)
+    for k in ("requests", "decodes", "dtw", "graphs"):
+        log_.setdefault(k, [])
+
+    def counted_encode(*a, **kw):
+        log_["encodes"] += 1
+        return encode(*a, **kw)
+
+    def counted_request(model, tok, req, device=None):
+        opts = req.get("options")
+        log_["requests"].append((req["kind"], req.get("seed"),
+                                 None if opts is None else opts.temperature))
+        return execute(model, tok, req, device)
+
+    def counted_decode(model, tok, mel, options=None, **kw):
+        log_["decodes"].append(mel.shape[0] if mel.ndim == 3 else 1)
+        return decode(model, tok, mel, options, **kw)
+
+    def counted_attentions(*a, **kw):
+        log_["captures"] += 1
+        return attentions(*a, **kw)
+
+    def timed_words(*a, **kw):
+        t0 = time.perf_counter()
+        out = words(*a, **kw)
+        log_["word_s"] += time.perf_counter() - t0
+        return out
+
+    class TimedCapture(captured):
+        def __init__(self, *a, **kw):
+            t0 = time.perf_counter()
+            super().__init__(*a, **kw)
+            log_["graph_s"] += time.perf_counter() - t0
+            log_["graphs"].append(time.perf_counter() - t0)
+
+    with patched(wm, encode_audio=counted_encode), \
+            patched(T, _execute_request=counted_request,
+                    _window_word_timings=timed_words), \
+            patched(decoding, decode=counted_decode), \
+            patched(timing, get_attentions=counted_attentions), \
+            patched(decode_graph, _Captured=TimedCapture), \
+            dtw_calls(log_["dtw"]):
+        yield
+
+
+def expected_long_form(dims, log_: dict) -> dict:
+    """The launch counts of a long-form run from what it executed: the
+    encoder kernel once a layer per encoder run (each decode request, each
+    detect request, each word-timing capture: the JAX package encodes
+    each call too), the QK post-process once a decoder layer per capture,
+    the DTW kernels once per capture; nothing else."""
+    from whisper_char_alignment_tpu_torch.ops import _lib
+
+    out = dict.fromkeys(_lib.LAUNCHES, 0)
+    out.update(encoder_attn=dims.n_audio_layer * log_["encodes"],
+               qkpost=dims.n_text_layer * log_["captures"],
+               dtw_trace=log_["captures"], dtw_backtrace=log_["captures"])
+    return out
+
+
+def hold_long_form(label: str, dims, log_: dict, counts: dict) -> int:
+    """The run's launch counts against its requests, and every DTW call's
+    jump frames against the NumPy DTW oracle. Returns the rows held."""
+    expect = expected_long_form(dims, log_)
+    log(f"[{label}] launch counts: {counts} (expected {expect})")
+    check(counts == expect, f"[{label}] launch counts differ from the path's")
+    check(len(log_["dtw"]) == log_["captures"],
+          f"[{label}] {len(log_['dtw'])} DTW calls for {log_['captures']} "
+          f"captures")
+    return sum(hold_jump_frames(c, range(c[0].shape[0]), f"[{label}] DTW {i}")
+               for i, c in enumerate(log_["dtw"]))
+
+
+def same_json(a, b) -> bool:
+    """Two results equal in every field, floats bit for bit (``repr``)."""
+    return json.dumps(a, sort_keys=True) == json.dumps(b, sort_keys=True)
+
+
+def windows_of(log_: dict) -> dict:
+    """Rungs per window: the solo decode requests by their window's seek."""
+    rungs = {}
+    for kind, seed, _ in log_["requests"]:
+        if kind == "decode":
+            seek = seed & 0xFFFFFFFF
+            rungs[seek] = rungs.get(seek, 0) + 1
+    return rungs
+
+
+def transcribe_phase(model, tok, card: str) -> None:
+    """``transcribe`` at Whisper-medium width on 65 s of speech-like audio
+    (three windows): the published ladder (0.0 ... 1.0; random weights
+    climb all of it), conditioning on previous text, ``language=None`` (the
+    detect request runs), word timestamps, ``sample_len`` 64. With
+    ``word_aggr="default"`` the graphed run equals the eager loops' run
+    (``decoding._decode_loop`` and ``run_eager``) in every field, floats
+    bit for bit; with ``"topk"`` (graphed) its decodes equal the default
+    run's. Each run's launch counts are set to 0 before it and equal after
+    it the counts of what it executed; every word-timing DTW equals the
+    NumPy oracle. Logs windows, rungs per window, graph captures and their
+    seconds, the decode/word-timing split and the real-time factor."""
+    import torch
+
+    from whisper_char_alignment_tpu_torch import transcribe as T
+    from whisper_char_alignment_tpu_torch.models import decode_graph, decoding
+    from whisper_char_alignment_tpu_torch.ops import _lib
+
+    audio = speech_like(LONG_SECONDS, seed=3)
+    kwargs = dict(language=None, sample_len=LONG_SAMPLE_LEN,
+                  word_timestamps=True, condition_on_previous_text=True,
+                  model_name="medium")
+    dims = model.dims
+
+    def run(aggr, eager=False):
+        log_ = {}
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(long_form_spies(log_))
+            if eager:
+                stack.enter_context(patched(
+                    decoding, _loop_for=lambda dev: decoding._decode_loop,
+                    runner_for=lambda dev: decoding.run_eager))
+            before = decode_graph.replay_record()
+            _lib.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = T.transcribe(model, tok, audio, word_aggr=aggr, **kwargs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            after = decode_graph.replay_record()
+        counts = _lib.launch_counts()
+        log_["record"] = {k: after[k] - before[k] for k in after}
+        return out, counts, wall, log_
+
+    results = {}
+    for label, aggr, eager in (("graphed", "default", False),
+                               ("eager", "default", True),
+                               ("graphed topk", "topk", False)):
+        out, counts, wall, log_ = run(aggr, eager)
+        held = hold_long_form(f"transcribe {label}", dims, log_, counts)
+        rungs = windows_of(log_)
+        n_detect = sum(k == "detect" for k, _, _ in log_["requests"])
+        check(n_detect == 1 and len(rungs) >= 3
+              and all(r == 6 for r in rungs.values()),
+              f"[transcribe {label}] detect {n_detect}, rungs per window "
+              f"{rungs}: not three windows climbing the whole ladder")
+        check(held >= 1 and out["segments"]
+              and any(s.get("words") for s in out["segments"]),
+              f"[transcribe {label}] no word timings ({held} DTW rows)")
+        results[label] = (out, counts, wall, log_)
+        rec = log_["record"]
+        log(f"[transcribe {label}] on {card}: {LONG_SECONDS:.0f} s of audio, "
+            f"{len(rungs)} windows (seeks {sorted(rungs)}), rungs per window "
+            f"{list(rungs.values())}, language {out['language']}, "
+            f"{len(out['segments'])} segments, "
+            f"{sum(len(s.get('words', [])) for s in out['segments'])} words; "
+            f"wall {wall:.3f} s -> real-time factor "
+            f"{LONG_SECONDS / wall:.2f} audio s per s; word timings "
+            f"{log_['word_s']:.3f} s of it; graph captures {rec['captures']} "
+            f"({log_['graph_s']:.3f} s: "
+            f"{[round(s, 3) for s in log_['graphs']]}), replays "
+            f"{rec['replays']}; encoder runs {log_['encodes']}, captures "
+            f"{log_['captures']}; {held} DTW rows equal the NumPy oracle")
+    graphed, eager = results["graphed"][0], results["eager"][0]
+    check(same_json(graphed, eager), "[transcribe] the graphed long-form "
+          "result differs from the eager loops'")
+    topk = results["graphed topk"][0]
+    check([s["tokens"] for s in topk["segments"]]
+          == [s["tokens"] for s in graphed["segments"]]
+          and [s["avg_logprob"] for s in topk["segments"]]
+          == [s["avg_logprob"] for s in graphed["segments"]],
+          "[transcribe] the topk run's decodes differ from the default's")
+    g_wall, e_wall = results["graphed"][2], results["eager"][2]
+    log(f"[transcribe] graphed == eager loops in every field, floats bit for "
+        f"bit ({len(graphed['segments'])} segments); wall {g_wall:.3f} s "
+        f"graphed (captures included), {e_wall:.3f} s eager "
+        f"({e_wall / g_wall:.2f}x); topk run's decodes equal the default's")
+
+
+def batched_phase(model, model32, tok, card: str) -> None:
+    """``transcribe_batched`` on 4 speech-like audios of 35-40 s (two
+    windows each) with ``condition_on_previous_text=False``, temperature 0
+    (random weights fail every gate, so with the ladder each window's five
+    fallback rungs would run solo and hide the batching) and word
+    timestamps, against each audio's solo ``transcribe``. Held with the
+    random bf16 weights computed in float32 (``model32``): every result
+    equal, tokens, texts, times and words exactly, float fields within
+    1e-4 (the batched decode's products run at 4 rows, the solo ones at 1,
+    and round differently). In bf16 those roundings can flip a token and
+    change the rest of the window, so the bf16 run's agreement is logged. Exact
+    launch counts in both; logs the shared decodes and the wall against
+    the solo runs."""
+    import torch
+
+    from whisper_char_alignment_tpu_torch import transcribe as T
+    from whisper_char_alignment_tpu_torch.ops import _lib
+
+    audios = [speech_like(s, seed=10 + k)
+              for k, s in enumerate((35.0, 37.0, 38.5, 40.0))]
+    kwargs = dict(language="en", sample_len=LONG_SAMPLE_LEN, temperature=0.0,
+                  condition_on_previous_text=False, word_timestamps=True,
+                  model_name="medium")
+
+    def run(m, label):
+        T.transcribe_batched(m, tok, audios, **kwargs)  # captures its graphs
+        T.transcribe(m, tok, audios[0], **kwargs)
+        solo, solo_s = [], 0.0
+        for a in audios:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solo.append(T.transcribe(m, tok, a, **kwargs))
+            torch.cuda.synchronize()
+            solo_s += time.perf_counter() - t0
+        log_ = {}
+        with long_form_spies(log_):
+            _lib.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batched = T.transcribe_batched(m, tok, audios, **kwargs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = _lib.launch_counts()
+        held = hold_long_form(label, m.dims, log_, counts)
+        shared = [r for r in log_["decodes"] if r > 1]
+        check(shared, f"[{label}] no shared decode: {log_['decodes']}")
+        return solo, solo_s, batched, wall, log_, held, shared
+
+    def decoded(r):
+        return (r["text"], r["language"],
+                [(x["id"], x["seek"], x["start"], x["end"], x["text"],
+                  x["tokens"], x["temperature"],
+                  [(w["word"], w["start"], w["end"])
+                   for w in x.get("words", [])]) for x in r["segments"]])
+
+    label = "transcribe_batched f32"
+    solo, solo_s, batched, wall, log_, held, shared = run(model32, label)
+    worst = 0.0
+    for s_, b in zip(solo, batched):
+        check(decoded(s_) == decoded(b),
+              f"[{label}] a result differs from its solo run")
+        for x, y in zip(s_["segments"], b["segments"]):
+            for k in ("avg_logprob", "compression_ratio", "no_speech_prob"):
+                worst = max(worst, abs(x[k] - y[k]))
+    check(worst <= 1e-4, f"[{label}] float fields differ from the solo runs "
+          f"by {worst:.3g} (tolerance 1e-4)")
+    log(f"[{label}] on {card}: {len(audios)} audios "
+        f"({sum(a.size for a in audios) / 16000:.1f} s), "
+        f"{len(log_['decodes'])} decodes, {len(shared)} shared (rows "
+        f"{shared}); wall {wall:.3f} s against {solo_s:.3f} s for the solo "
+        f"runs ({solo_s / wall:.2f}x); every result equal to its solo run: "
+        f"tokens, texts, times and words equal, float fields within "
+        f"{worst:.3g}; {held} DTW rows equal the NumPy oracle")
+    label16 = "transcribe_batched bf16"
+    solo16, solo16_s, batched16, wall16, _, held16, shared16 = run(model,
+                                                                   label16)
+    same16 = [decoded(s_) == decoded(b) for s_, b in zip(solo16, batched16)]
+    segs = [sum(x == y for x, y in zip(decoded(s_)[2], decoded(b)[2]))
+            for s_, b in zip(solo16, batched16)]
+    log(f"[{label16}] on {card}: {len(shared16)} shared decodes; wall "
+        f"{wall16:.3f} s against {solo16_s:.3f} s solo "
+        f"({solo16_s / wall16:.2f}x); results equal to the solo runs: "
+        f"{same16}; segments equal per audio {segs} of "
+        f"{[len(r['segments']) for r in solo16]} (not held: bf16 products "
+        f"at 4 rows and at 1 round differently); {held16} DTW rows equal the "
+        f"NumPy oracle")
+
+
+def transcribe_cli_phase(model, tok, card: str) -> None:
+    """``cli.transcribe`` at Whisper-medium width on the card (the model
+    loader replaced by the smoke's model; bf16; 20 s of speech-like audio,
+    one window, the published ladder and decode budget, word timestamps):
+    all five output formats written, exact launch counts, DTW held. Then
+    ``--test_model`` on ``sample/test.wav`` on the card and with
+    ``WCA_PLATFORM=cpu`` (temperature 0 alone: the card's and the CPU's
+    generators draw different noise): txt, srt, vtt and tsv byte-equal,
+    the json equal with float fields within 1e-4."""
+    import torch
+
+    from whisper_char_alignment_tpu_torch.audio.wav import save as wav_save
+    from whisper_char_alignment_tpu_torch.cli import common
+    from whisper_char_alignment_tpu_torch.cli import transcribe as tcli
+    from whisper_char_alignment_tpu_torch.ops import _lib
+
+    exts = ("txt", "srt", "vtt", "tsv", "json")
+    with tempfile.TemporaryDirectory(prefix="smoke_transcribe_",
+                                     dir=os.path.join(HERE, "build")) as d:
+        wav = os.path.join(d, "talk.wav")
+        wav_save(wav, speech_like(20.0, seed=4), 16000)
+        log_ = {}
+        with patched(common, load_model_and_tokenizer=lambda args,
+                     device=None: (model, tok)), long_form_spies(log_):
+            _lib.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc = tcli.main([wav, "--model", "medium", "--compute_dtype",
+                            "bfloat16", "--word_timestamps",
+                            "--output_format", "all", "--output_dir",
+                            os.path.join(d, "out")])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = _lib.launch_counts()
+        check(rc == 0, f"[cli transcribe] exit {rc}")
+        held = hold_long_form("cli transcribe", model.dims, log_, counts)
+        written = {e: os.path.getsize(os.path.join(d, "out", f"talk.{e}"))
+                   for e in exts}
+        with open(os.path.join(d, "out", "talk.json")) as f:
+            result = json.load(f)
+        check(result["segments"] and all(written.values()),
+              f"[cli transcribe] outputs {written}")
+        log(f"[cli transcribe] on {card}: 20 s in {wall:.3f} s (model load "
+            f"excluded), rungs per window {list(windows_of(log_).values())}, "
+            f"{len(result['segments'])} segments; files {written} bytes; "
+            f"{held} DTW rows equal the NumPy oracle")
+
+        argv = ["sample/test.wav", "--test_model", "--model", "tiny-test",
+                "--language", "en", "--word_timestamps", "--temperature",
+                "0", "--temperature_increment_on_fallback", "2",
+                "--output_format", "all"]
+        cwd = os.getcwd()
+        os.chdir(HERE)  # argv names sample/test.wav
+        try:
+            for platform in ("gpu", "cpu"):
+                with environ(WCA_PLATFORM=platform):
+                    check(tcli.main(argv + ["--output_dir",
+                                            os.path.join(d, platform)]) == 0,
+                          f"[tiny cli transcribe] {platform} exit")
+        finally:
+            os.chdir(cwd)
+        for e in exts[:4]:
+            paths = [os.path.join(d, p, f"test.{e}") for p in ("gpu", "cpu")]
+            blobs = [open(p, "rb").read() for p in paths]
+            check(blobs[0] == blobs[1], f"[tiny cli transcribe] {e}: card "
+                  f"{blobs[0][:200]!r} != CPU {blobs[1][:200]!r}")
+        card_j, cpu_j = (json.load(open(os.path.join(d, p, "test.json")))
+                         for p in ("gpu", "cpu"))
+        worst = 0.0
+
+        def walk(a, b):
+            nonlocal worst
+            if isinstance(b, float):
+                worst = max(worst, abs(a - b))
+            elif isinstance(b, dict):
+                check(sorted(a) == sorted(b), "[tiny cli transcribe] keys")
+                for k in b:
+                    walk(a[k], b[k])
+            elif isinstance(b, list):
+                check(len(a) == len(b), "[tiny cli transcribe] lengths")
+                for x, y in zip(a, b):
+                    walk(x, y)
+            else:
+                check(a == b, f"[tiny cli transcribe] {a!r} != {b!r}")
+
+        walk(card_j, cpu_j)
+        check(worst <= 1e-4, f"[tiny cli transcribe] json floats differ by "
+              f"{worst:.3g}")
+        log(f"[tiny cli transcribe] --test_model on sample/test.wav: txt, "
+            f"srt, vtt and tsv byte-equal on the card and the CPU, json "
+            f"equal with floats within {worst:.3g} (tolerance 1e-4): "
+            f"{card_j['text']!r}, {len(card_j['segments'])} segments")
+
+
+def _wav_bytes(audio) -> bytes:
+    """A 16 kHz WAV file's bytes (the port's own writer)."""
+    from whisper_char_alignment_tpu_torch.audio.wav import save as wav_save
+
+    with tempfile.NamedTemporaryFile(suffix=".wav",
+                                     dir=os.path.join(HERE, "build")) as f:
+        wav_save(f.name, audio, 16000)
+        with open(f.name, "rb") as g:
+            return g.read()
+
+
+def serve_phase(model, tok, card: str) -> None:
+    """The HTTP server at Whisper-medium width on the card, in process, on
+    ``model`` (the random bf16 weights computed in float32: /transcribe's
+    batched decode is held against solo runs, see :func:`batched_phase`):
+    ``serve(...)`` on 127.0.0.1, port 0, batch 8, /align decodes of 32
+    steps, ``warmup`` and ``warmup_transcribe`` (the traffic's recipe)
+    before traffic. /healthz; 8 /align requests of 3-7 s each posted alone,
+    then all 8 at once: one micro-batch, each response equal to its solo
+    one; 4 /transcribe requests of 9-25 s at once (their first windows in
+    one shared decode of 4 rows), each equal to the solo ``transcribe``; a
+    413 for an oversized body. No graph of a warmed shape is captured after
+    the warmups, and the launch counts are exact. Logs /align req/s
+    and p50/p95 latency, the /transcribe wall and peak device memory."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from whisper_char_alignment_tpu_torch import api
+    from whisper_char_alignment_tpu_torch import transcribe as T
+    from whisper_char_alignment_tpu_torch.audio.resample import \
+        load_resampled_bytes
+    from whisper_char_alignment_tpu_torch.cli import serve as serve_mod
+    from whisper_char_alignment_tpu_torch.models import decode_graph
+    from whisper_char_alignment_tpu_torch.ops import _lib
+
+    recipe = dict(language="en", sample_len=LONG_SAMPLE_LEN, temperature=0.0,
+                  without_timestamps=True, word_timestamps=True)
+    query = ("language=en&sample_len=%d&temperature=0&without_timestamps=1"
+             "&word_timestamps=1" % LONG_SAMPLE_LEN)
+    torch.cuda.reset_peak_memory_stats()
+    m = api.Model(model=model, tokenizer=tok, name="medium")
+    srv = serve_mod.serve(m, port=0, compute_dtype=model.dtype,
+                          batch_size=BATCH, linger_ms=5.0,
+                          config_overrides=dict(decode_sample_len=DECODE_LEN))
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def post(route, body):
+        t0 = time.perf_counter()
+        req = urllib.request.Request(f"{url}/{route}", data=body,
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return json.loads(r.read()), time.perf_counter() - t0
+
+    def wave(route, bodies):
+        outs, errors = [None] * len(bodies), []
+
+        def client(i):
+            try:
+                outs[i] = post(route, bodies[i])
+            except Exception as e:  # surfaced by the check below
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(bodies))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        check(not errors and all(o is not None for o in outs),
+              f"[serve] {route}: {errors}")
+        return [o[0] for o in outs], [o[1] for o in outs], wall
+
+    try:
+        t0 = time.perf_counter()
+        serve_mod.warmup(m, batcher=srv.batcher)
+        serve_mod.warmup_transcribe(m, batch_size=BATCH,
+                                    tbatcher=srv.tbatcher, **recipe)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        warmed = decode_graph.replay_record()
+        warm_keys = set(decode_graph._GRAPHS[model])
+        with urllib.request.urlopen(f"{url}/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        check(health == {"ok": True, "model": "medium"},
+              f"[serve] /healthz {health}")
+
+        log_ = {}
+        align_bodies = [_wav_bytes(speech_like(3.0 + 4.0 * k / 7, seed=20 + k))
+                        for k in range(BATCH)]
+        tr_bodies = [_wav_bytes(speech_like(s, seed=30 + k))
+                     for k, s in enumerate((9.0, 14.0, 19.0, 25.0))]
+        with long_form_spies(log_):
+            _lib.reset_launches()
+            launches0 = srv.batcher.n_launches
+            srv.batcher.linger_s = 0.0  # requests posted one at a time
+            solo = [post("align", b)[0] for b in align_bodies]
+            launches1 = srv.batcher.n_launches
+            # a batch leaves as soon as it is full: the linger only bounds
+            # the wait for all 8 clients
+            srv.batcher.linger_s = 10.0
+            outs, lat, wall = wave("align", align_bodies)
+            align_batches = srv.batcher.n_launches - launches0
+            check(srv.batcher.n_launches - launches1 == 1,
+                  f"[serve] 8 /align requests ran in "
+                  f"{srv.batcher.n_launches - launches1} batches, not one")
+            aligned = sum(len(o["words"]) >= 2 for o in solo)
+            check(outs == solo and aligned >= 1,
+                  "[serve] a batched /align response differs from its solo "
+                  "one, or none holds words")
+            t_launch0 = srv.tbatcher.n_launches
+            # 4 requests never fill a batch of 8: the dispatcher lingers
+            # 2 s for them; the batch's own run is timed
+            srv.tbatcher.linger_s = 2.0
+            run_batch, t_run = srv.tbatcher._run_batch, []
+
+            def timed_batch(batch):
+                t0 = time.perf_counter()
+                out = run_batch(batch)
+                torch.cuda.synchronize()
+                t_run.append(time.perf_counter() - t0)
+                return out
+
+            with patched(srv.tbatcher, _run_batch=timed_batch):
+                t_outs, _, _ = wave(f"transcribe?{query}", tr_bodies)
+            t_wall = sum(t_run)
+            check(srv.tbatcher.n_launches - t_launch0 == 1,
+                  "[serve] the 4 /transcribe requests ran in "
+                  f"{srv.tbatcher.n_launches - t_launch0} batches")
+            torch.cuda.synchronize()
+            counts = _lib.launch_counts()
+        after = decode_graph.replay_record()
+        # a later window of a request is conditioned on the earlier ones'
+        # text (random weights emit timestamp pairs that end a window
+        # early): its prompt length is a shape no warmup can know
+        new_keys = [k for k in decode_graph._GRAPHS[model]
+                    if k not in warm_keys]
+        warm_begins = {k[1].sample_begin for k in warm_keys}
+        recaptured = after["captures"] - warmed["captures"] - len(new_keys)
+        check(recaptured == 0 and all(k[1].sample_begin not in warm_begins
+                                      for k in new_keys),
+              f"[serve] {after['captures'] - warmed['captures']} graphs "
+              f"captured after the warmups, {recaptured} of a warmed shape")
+        t_decodes = log_["decodes"][align_batches:]
+        n_decodes = len(t_decodes)
+        check(log_["decodes"][:align_batches] == [BATCH] * align_batches
+              and t_decodes[:1] == [4], f"[serve] decodes "
+              f"{log_['decodes']}: the /transcribe wave's first is not one "
+              f"of 4 rows")
+        # each /align batch encodes and captures once; each /transcribe
+        # decode and each of its word-timing captures encodes once
+        word_caps = log_["captures"] - align_batches
+        check(align_batches == BATCH + 1 and 1 <= word_caps
+              and log_["encodes"] == align_batches + n_decodes + word_caps,
+              f"[serve] encoder runs {log_['encodes']}, captures "
+              f"{log_['captures']} for {align_batches} /align batches and "
+              f"{n_decodes} decodes")
+        held = hold_long_form("serve", model.dims, log_, counts)
+        solo_tr = [T.transcribe(model, tok, load_resampled_bytes(b),
+                                model_name="medium", **recipe)
+                   for b in tr_bodies]
+        tr_json = [json.loads(json.dumps(s)) for s in solo_tr]
+        bit_equal = t_outs == tr_json
+        worst = 0.0
+        for o, s in zip(t_outs, tr_json):
+            check(all(x[k] == y[k] for x, y in zip(o["segments"],
+                                                    s["segments"])
+                      for k in ("seek", "start", "end", "text", "tokens"))
+                  and o["text"] == s["text"]
+                  and len(o["segments"]) == len(s["segments"])
+                  and [[(w["word"], w["start"], w["end"])
+                        for w in x.get("words", [])] for x in o["segments"]]
+                  == [[(w["word"], w["start"], w["end"])
+                       for w in x.get("words", [])] for x in s["segments"]],
+                  "[serve] a /transcribe response differs from the solo "
+                  "transcribe")
+            for x, y in zip(o["segments"], s["segments"]):
+                for k in ("avg_logprob", "compression_ratio",
+                          "no_speech_prob"):
+                    worst = max(worst, abs(x[k] - y[k]))
+        check(worst <= 1e-3, f"[serve] /transcribe floats differ from the "
+              f"solo transcribe by {worst:.3g} (tolerance 1e-3)")
+
+        old_cap = serve_mod.MAX_BODY_BYTES
+        serve_mod.MAX_BODY_BYTES = 1024
+        try:
+            post("align", b"\0" * 4096)
+            status = 200
+        except urllib.error.HTTPError as e:
+            status = e.code
+        finally:
+            serve_mod.MAX_BODY_BYTES = old_cap
+        check(status == 413, f"[serve] oversized body answered {status}")
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        srv.shutdown()
+        srv.batcher.close()
+        srv.tbatcher.close()
+        thread.join(timeout=60)
+    lat_ms = np.asarray(lat) * 1e3
+    log(f"[serve] on {card}: warmups {warm_s:.3f} s ({warmed['captures']} "
+        f"graphs captured in this process so far); /healthz {health}; 8 "
+        f"concurrent /align of 3-7 s in one batch, each equal to its solo "
+        f"response ({aligned} with words): {BATCH / wall:.3f} req/s, latency p50 "
+        f"{np.percentile(lat_ms, 50):.1f} ms, p95 "
+        f"{np.percentile(lat_ms, 95):.1f} ms; 4 concurrent /transcribe of "
+        f"9-25 s in one batch, decodes of rows {t_decodes}: wall "
+        f"{t_wall:.3f} s, each "
+        f"equal to the solo transcribe (floats "
+        f"{'bit for bit' if bit_equal else f'within {worst:.3g}'}); 413 for "
+        f"an oversized body; no capture of a warmed shape after the warmups "
+        f"({len(new_keys)} of prompted later windows); {held} DTW rows "
+        f"equal the NumPy oracle; peak device memory {peak / 2**30:.2f} GiB")
+
+
+def long_form_phases(model, tok, card: str) -> None:
+    """The long-form and serving paths (phase 4), each with its launch
+    counts set to 0 just before it and read just after, with the toy
+    tokenizer padded to the model's vocabulary."""
+    import torch
+
+    from whisper_char_alignment_tpu_torch.models import whisper as wm
+
+    t0 = time.perf_counter()
+    tok = vocab_tokenizer(model.dims.n_vocab)
+    # the same random bf16 weights computed in float32, where a batched
+    # decode and a solo one agree to rounding (batched_phase)
+    model32 = wm.cast_params(model, torch.float32)
+    transcribe_phase(model, tok, card)
+    batched_phase(model, model32, tok, card)
+    transcribe_cli_phase(model, tok, card)
+    serve_phase(model32, tok, card)
+    log(f"[long form] phases done in {time.perf_counter() - t0:.1f} s")
+
+
 def main_path_phase(card: str):
     import torch
 
@@ -1969,6 +2658,7 @@ def main_path_phase(card: str):
         cli_counts = cli_phase(model, tok, scp, len(dataset), card)
     cli_counts["probe"] = probe_phase(model, tok, card)
     log(f"tiny model CLI, card vs CPU: {tiny_cli_phase()}")
+    long_form_phases(model, tok, card)
     return counts, counts2, cli_counts, seen["dtw_inputs"]
 
 

@@ -456,3 +456,147 @@ def test_graphed_speculative_equals_the_eager_rounds(cuda, monkeypatch):
                                                 draft_k=3, return_info=True)
         assert graphed[1] == eager[1]
         _same_results([graphed[0]], [eager[0]])
+
+
+def _long_audio(windows, dims, seed):
+    n = int(windows * 2 * dims.n_audio_ctx * 160)
+    return (np.random.default_rng(seed).normal(0, 0.1, n)
+            .astype(np.float32))
+
+
+@pytest.mark.parametrize("aggr", ["default", "topk"])
+def test_graphed_transcribe_equals_the_eager_loops(cuda, aggr, monkeypatch):
+    """Long-form ``transcribe`` on the card (three windows, the whole
+    fallback ladder, which random weights climb, conditioning on previous
+    text, ``language=None`` and word timestamps) with every decode replayed
+    as a CUDA graph, against the same run with the eager loops: the result
+    dicts are equal, floats bit for bit. The kernels' launches are exact:
+    the encoder once per request and per word-timing capture, the QK
+    post-process per layer and one DTW per capture."""
+    from whisper_char_alignment_tpu_torch import transcribe as T
+    from whisper_char_alignment_tpu_torch.align import timing
+    from whisper_char_alignment_tpu_torch.models import decode_graph, decoding
+
+    tok, model, _ = _tiny_decoder_model(cuda, 8)
+    audio = _long_audio(2.4, model.dims, 8)
+    kwargs = dict(language=None, sample_len=12, word_timestamps=True,
+                  word_aggr=aggr)
+    requests, captures = [], []
+    execute, attentions = T._execute_request, timing.get_attentions
+
+    def counted_request(model_, tok_, req, device=None):
+        requests.append(req["kind"])
+        return execute(model_, tok_, req, device)
+
+    def counted_attentions(*a, **kw):
+        captures.append(1)
+        return attentions(*a, **kw)
+
+    monkeypatch.setattr(T, "_execute_request", counted_request)
+    monkeypatch.setattr(timing, "get_attentions", counted_attentions)
+    decode_graph.reset_record()
+    _lib.reset_launches()
+    graphed = T.transcribe(model, tok, audio, **kwargs)
+    counts = _lib.launch_counts()
+    record = decode_graph.replay_record()
+    dims = model.dims
+    want = dict.fromkeys(counts, 0)
+    want.update(encoder_attn=dims.n_audio_layer * (len(requests)
+                                                   + len(captures)),
+                qkpost=dims.n_text_layer * len(captures),
+                dtw_trace=len(captures), dtw_backtrace=len(captures))
+    assert counts == want
+    assert requests[0] == "detect" and len(captures) >= 1
+    assert record["captures"] >= 2 and record["replays"] > 0
+    assert any(s["temperature"] > 0 for s in graphed["segments"])
+    monkeypatch.setattr(decoding, "_loop_for",
+                        lambda dev: decoding._decode_loop)
+    monkeypatch.setattr(decoding, "runner_for",
+                        lambda dev: decoding.run_eager)
+    eager = T.transcribe(model, tok, audio, **kwargs)
+    assert graphed == eager
+
+
+def test_transcribe_batched_equals_solo_on_the_card(cuda):
+    """``transcribe_batched`` of three audios (one batched decode of 4 rows
+    a round) against each audio's solo ``transcribe`` on the card: tokens,
+    texts and times equal, float fields within 1e-5 (the batched decode's
+    matrix products run at another row count)."""
+    from whisper_char_alignment_tpu_torch import transcribe as T
+
+    tok, model, _ = _tiny_decoder_model(cuda, 9)
+    audios = [_long_audio(w, model.dims, 20 + k)
+              for k, w in enumerate((0.7, 1.6, 2.2))]
+    kwargs = dict(language="en", sample_len=10, temperature=0.0,
+                  condition_on_previous_text=False, word_timestamps=True)
+    batched = T.transcribe_batched(model, tok, audios, **kwargs)
+    for audio, b in zip(audios, batched):
+        s = T.transcribe(model, tok, audio, **kwargs)
+        assert (s["text"], s["language"]) == (b["text"], b["language"])
+        assert len(s["segments"]) == len(b["segments"])
+        for x, y in zip(s["segments"], b["segments"]):
+            for k in ("id", "seek", "start", "end", "text", "tokens",
+                      "temperature"):
+                assert x[k] == y[k], k
+            for k in ("avg_logprob", "compression_ratio", "no_speech_prob"):
+                assert x[k] == pytest.approx(y[k], abs=1e-5), k
+
+
+def test_serve_round_trip_on_the_card(cuda, tmp_path):
+    """``serve`` on the card: /healthz; /align requests posted together
+    share a batch and each equals the same request posted alone;
+    /transcribe equals the solo ``api.transcribe`` on the card."""
+    import json
+    import threading
+    import urllib.request
+
+    from whisper_char_alignment_tpu_torch import api
+    from whisper_char_alignment_tpu_torch.audio.resample import \
+        load_resampled_bytes
+    from whisper_char_alignment_tpu_torch.audio.wav import save as wav_save
+    from whisper_char_alignment_tpu_torch.cli.serve import serve
+
+    tok, net, _ = _tiny_decoder_model(cuda, 10)
+    model = api.Model(model=net, tokenizer=tok, name="test")
+    srv = serve(model, port=0, batch_size=4, linger_ms=200.0)
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def post(route, body):
+        req = urllib.request.Request(f"{url}/{route}", data=body,
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return json.loads(r.read())
+
+    try:
+        with urllib.request.urlopen(f"{url}/healthz", timeout=60) as r:
+            assert json.loads(r.read()) == {"ok": True, "model": "test"}
+        bodies = []
+        for k in range(3):
+            path = str(tmp_path / f"a{k}.wav")
+            wav_save(path, _long_audio(0.5 + 0.2 * k, net.dims, 30 + k),
+                     16000)
+            with open(path, "rb") as f:
+                bodies.append(f.read())
+        solo = [post("align?topk=3", b) for b in bodies]
+        outs = [None] * 3
+        launches = srv.batcher.n_launches
+        threads = [threading.Thread(
+            target=lambda k=k: outs.__setitem__(k, post("align?topk=3",
+                                                         bodies[k])))
+            for k in range(3)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        assert outs == solo and srv.batcher.n_launches - launches < 3
+        out = post("transcribe?language=en&sample_len=8", bodies[2])
+        want = api.transcribe(model, load_resampled_bytes(bodies[2]),
+                              language="en", sample_len=8)
+        assert out == json.loads(json.dumps(want))
+    finally:
+        srv.shutdown()
+        srv.batcher.close()
+        srv.tbatcher.close()
+        t.join(timeout=60)

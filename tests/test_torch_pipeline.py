@@ -159,16 +159,17 @@ def test_wire_is_int16_for_pcm_sources(setup):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    mods = ["api", "runner", "align.metrics", "align.timing", "audio.mel",
-            "audio.resample", "audio.wav", "cli.common", "cli.eval_ali",
-            "cli.infer_ali", "cli.probe_oracle", "config", "constants",
+    mods = ["api", "runner", "transcribe", "align.metrics", "align.timing",
+            "audio.mel", "audio.resample", "audio.wav", "cli.common",
+            "cli.eval_ali", "cli.infer_ali", "cli.probe_oracle",
+            "cli.serve", "cli.transcribe", "config", "constants",
             "data.dataset", "data.synthetic", "models.beam", "models.convert",
             "models.decode_graph", "models.decoding", "models.whisper",
             "ops.cross_attn_cuda", "ops.dtw", "ops.dtw_cuda",
             "ops.encoder_attn_cuda", "ops.medfilt", "ops.mel_cuda",
             "ops.qkpost_cuda", "ops._lib", "text.bpe", "text.numwords",
             "text.retokenize", "text.tokenizer", "utils.device",
-            "utils.profiling", "utils.unported", "viz.plot"]
+            "utils.profiling", "utils.unported", "utils.writers", "viz.plot"]
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -8,10 +8,14 @@ a CUDA C++ kernel here (``csrc/``), each with a plain PyTorch version of the
 same function beside its wrapper (``ops/*_cuda.py``).
 
 The package imports ``torch`` and never ``jax``, and nothing of the JAX
-package: the jax-free host modules it needs are copies. Entry points run on
-``cuda`` unless the caller passes ``device="cpu"``; the command-line tools
-(``cli/infer_ali``, ``cli/eval_ali``, ``cli/probe_oracle``) take the JAX
-CLIs' flags and run on the CPU with ``WCA_PLATFORM=cpu``.
+package: the jax-free host modules it needs are copies. Entry points
+(``api.align``, ``api.align_long``, ``api.transcribe``, ``transcribe.
+transcribe`` and ``transcribe_batched``, ``runner.AlignmentPipeline``) run
+on ``cuda`` unless the caller passes ``device="cpu"``; the command-line
+tools (``cli/infer_ali``, ``cli/eval_ali``, ``cli/probe_oracle``,
+``cli/transcribe`` with the ``utils/writers`` output formats, and the HTTP
+server ``cli/serve``) take the JAX CLIs' flags and run on the CPU with
+``WCA_PLATFORM=cpu``.
 """
 
 from . import constants

@@ -136,12 +136,14 @@ def load_model_and_tokenizer(args, device=None
     """Resolve weights + tokenizer from flags/env onto ``device``;
     ``--test_model`` gives a deterministic random tiny model for offline
     runs, its weights drawn on the CPU from a ``torch.Generator`` seeded 0,
-    so they are the same on every device. ``--multihost`` raises here, the
-    other flags the port does not carry yet (``--encoder_int8``,
-    ``--data_parallel``/``--tensor_parallel`` above 1) in
-    ``AlignmentPipeline``."""
+    so they are the same on every device. ``--multihost`` and
+    ``--encoder_int8`` raise here, for every CLI (``transcribe`` and
+    ``serve`` build no pipeline at load), ``--data_parallel`` /
+    ``--tensor_parallel`` above 1 in ``AlignmentPipeline``."""
     if getattr(args, "multihost", False):
         raise not_ported("--multihost", "parallel")
+    if getattr(args, "encoder_int8", False):
+        raise not_ported("--encoder_int8", "quantized")
     dev = resolve_device(device)
     if getattr(args, "test_model", False):
         tok = get_test_tokenizer()
