@@ -30,7 +30,11 @@ Phases (any failure exits non-zero and prints no final line):
    computes the same function, that call; the cross-attention, the mel
    kernels and their yardsticks read inputs rotated over 100 MB of copies,
    so from HBM, with the L2-warm time beside; the plain int8 step of the
-   ``mxu`` mode is timed beside the cross-attention kernel.
+   ``mxu`` mode is timed beside the cross-attention kernel. The int8
+   encoder linear's two kernels (row quantize, epilogue) at
+   Whisper-medium's six linear shapes (M = 12,000), bit-equal in bf16 and
+   f32, timed against their byte bounds beside ``torch._int_mm`` (its
+   int32 product exact) and bf16 ``F.linear``.
 3. The port's main path, ``AlignmentPipeline.run_dataset`` at Whisper-medium
    width (random weights from torch.Generator seed 0, bf16, toy tokenizer,
    16 synthetic utterances of 2-7 s), twice: as configured by default, and
@@ -78,6 +82,9 @@ Phases (any failure exits non-zero and prints no final line):
    ``draft_k`` 4, one utterance) graphed against eager in bf16 and f32,
    its f32 transcript against greedy's (a difference passes only at a
    top1-top2 gap below 1e-4), its round time beside a greedy B=1 step.
+   The main path with the int8 encoder follows the default run: exactly
+   144 launches of each int8 kernel per encoder run, the encoder stage
+   beside bf16's, the int8 states' error against bf16's.
 4. Long-form transcription and serving at Whisper-medium width, each path
    with its launch counts set to 0 just before it and equal just after it
    to the counts of what it executed (the encoder kernel per layer for
@@ -96,7 +103,17 @@ Phases (any failure exits non-zero and prints no final line):
    after the warmups). Logs windows, rungs, graph captures and their
    seconds, the real-time factor, /align req/s and p50/p95 latency, and
    peak device memory.
-5. A JSON line of per-kernel numbers, then
+5. Two gloo ranks on the one card, the device named (``cuda:0``): this
+   script started again as ``chip_smoke.py --mesh-worker RANK 2 INIT JOB``
+   (the kernels already built), medium width, 8 utterances, ground-truth
+   transcripts. Tensor parallelism over 2 ranks and data parallelism over
+   2, in float32 compute, give the one-process run's words and boundaries
+   (bf16 logged); the int8 encoder under a model axis of 2 gives encoder
+   states bit-equal to one rank's; each rank's launch counts are exact; a
+   model axis decodes eagerly, a data axis replays graphs. Per-rank wall
+   and stages are printed ("gloo, one card": a check of function, no
+   measure of NCCL).
+6. A JSON line of per-kernel numbers, then
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -448,6 +465,7 @@ def kernel_phase():
 
     rows.update(cross_attn_rows(gen))
     rows.update(mel_rows(gen))
+    rows.update(int8_rows(gen))
     return rows
 
 
@@ -864,6 +882,115 @@ def mel_rows(gen):
     return rows
 
 
+# Whisper-medium's six encoder linears at B=8 (M = 8 x 1500 rows): q, k, v
+# and out (1024 -> 1024), fc1 (1024 -> 4096), fc2 (4096 -> 1024)
+INT8_M = 8 * 1500
+INT8_SHAPES = ((1024, 1024), (1024, 4096), (4096, 1024))
+PEAK_INT8 = 1979e12
+
+
+def int8_rows(gen):
+    """The int8 encoder linear's two kernels at Whisper-medium's shapes, in
+    bf16 (and once in f32): the row quantize and the epilogue bit-equal to
+    their plain versions (a zero row; a row max given from elsewhere, as a
+    row-split tensor-parallel layer passes it; with and without a bias),
+    each timed against its byte bound, beside the int8 product
+    (``torch._int_mm``, its int32 result equal to an exact float64 product)
+    and bf16 ``F.linear`` at the same shape, as yardsticks."""
+    import torch
+    import torch.nn.functional as F
+
+    from whisper_char_alignment_tpu_torch.ops import int8_cuda
+
+    dev = torch.device("cuda")
+    m = INT8_M
+    rows, quant, deq = {}, {}, {}
+    for k, n in INT8_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = (torch.randn((m, k), generator=gen, device=dev) * 3).to(dtype)
+            x[7] = 0
+            codes, xs = int8_cuda.quantize_rows(x)
+            want = int8_cuda.quantize_rows_plain(x)
+            check(torch.equal(codes, want[0]) and torch.equal(xs, want[1]),
+                  f"int8 quantize ({m}, {k}) {dtype}: not bit-equal")
+            amax = x.float().abs().amax(dim=-1, keepdim=True) * 1.25
+            got = int8_cuda.quantize_rows(x, amax)
+            want = int8_cuda.quantize_rows_plain(x, amax)
+            check(torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                               want[1]),
+                  f"int8 quantize ({m}, {k}) {dtype} with a given row max: "
+                  "not bit-equal")
+            w8 = torch.randint(-127, 128, (n, k), dtype=torch.int8,
+                               device=dev, generator=gen)
+            y = int8_cuda.int_mm(codes, w8)
+            check(torch.equal(y.double(), codes.double() @ w8.double().t()),
+                  f"int8 product ({m}, {k}) x ({k}, {n}): not exact")
+            s = torch.rand(n, generator=gen, device=dev) * 1e-2
+            b = torch.randn(n, generator=gen, device=dev).to(dtype)
+            for bias in (None, b):
+                got = int8_cuda.dequantize(y, xs, s, bias, dtype)
+                check(torch.equal(got, int8_cuda.dequantize_plain(
+                    y, xs, s, bias, dtype)), f"int8 epilogue ({m}, {n}) "
+                      f"{dtype} bias={bias is not None}: not bit-equal")
+            if dtype != torch.bfloat16:
+                continue
+            isz = x.element_size()
+            q_bytes = m * k * (isz + 1) + 4 * m
+            q_bound = q_bytes / HBM_BYTES_PER_S * 1e3
+            d_bytes = m * n * (4 + isz) + 4 * m + 4 * n + isz * n
+            d_bound = d_bytes / HBM_BYTES_PER_S * 1e3
+            if k not in quant:
+                ms, method = kernel_ms(lambda: int8_cuda.quantize_rows(x),
+                                       "int8_quant_kernel", q_bound)
+                plain = cuda_ms(lambda: int8_cuda.quantize_rows_plain(x))
+                quant[k] = dict(ms=ms, method=method, plain=plain,
+                                bound=q_bound)
+                log(f"int8 quantize ({m}, {k}) bf16: bit-equal; {ms:.4f} ms "
+                    f"({method}) against its byte bound {q_bound:.4f} ms "
+                    f"({q_bytes / 1e6:.1f} MB, {q_bytes / ms / 1e6:.0f} "
+                    f"GB/s); plain {plain:.4f} ms")
+            if n not in deq:
+                ms, method = kernel_ms(
+                    lambda: int8_cuda.dequantize(y, xs, s, b, dtype),
+                    "int8_dequant_kernel", d_bound)
+                plain = cuda_ms(lambda: int8_cuda.dequantize_plain(
+                    y, xs, s, b, dtype))
+                deq[n] = dict(ms=ms, method=method, plain=plain,
+                              bound=d_bound)
+                log(f"int8 epilogue ({m}, {n}) bf16 + bias: bit-equal; "
+                    f"{ms:.4f} ms ({method}) against its byte bound "
+                    f"{d_bound:.4f} ms ({d_bytes / 1e6:.1f} MB, "
+                    f"{d_bytes / ms / 1e6:.0f} GB/s); plain {plain:.4f} ms")
+            wf = torch.randn((n, k), generator=gen, device=dev).to(dtype)
+            mm_bound = max(2 * m * k * n / PEAK_INT8,
+                           (m * k + k * n + 4 * m * n) / HBM_BYTES_PER_S) * 1e3
+            lin_bound = max(2 * m * k * n / PEAK_BF16,
+                            isz * (m * k + k * n + m * n)
+                            / HBM_BYTES_PER_S) * 1e3
+            mm_ms, mm_method = library_ms(lambda: int8_cuda.int_mm(codes, w8),
+                                          mm_bound)
+            lin_ms, lin_method = library_ms(lambda: F.linear(x, wf),
+                                            lin_bound)
+            log(f"int8 product ({m}, {k}) x ({k}, {n}): torch._int_mm "
+                f"{mm_ms:.4f} ms ({mm_method}; bound {mm_bound:.4f} ms at "
+                f"1979 TOP/s) beside bf16 F.linear {lin_ms:.4f} ms "
+                f"({lin_method}; bound {lin_bound:.4f} ms); exact")
+    # the rows time the shapes five of the six layers give each kernel
+    for name, table, key, replaces in (
+            ("int8_quant", quant, 1024, "_int8_rowwise, fused by XLA"),
+            ("int8_dequant", deq, 1024, "_linear_int8's epilogue, fused by "
+             "XLA")):
+        r = table[key]
+        rows[name] = dict(
+            name=name, route="cuda",
+            source="whisper_char_alignment_tpu_torch/csrc/int8_linear.cu",
+            replaces=f"whisper_char_alignment_tpu/models/whisper.py:148 "
+            f"(no pallas_call: {replaces})", max_abs_err=0.0, ms=r["ms"],
+            ms_method=r["method"], plain_ms=r["plain"], bound_ms=r["bound"],
+            bound_by="bytes", library_ms=None)
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -1052,6 +1179,7 @@ def drive(label: str, pipe, dataset, expected, card: str):
     check(counts == expect, f"[{label}] launch counts differ from the path's")
     check_alignments(results, dataset, len(dataset))
     stages = {k: round(v, 4) for k, v in pipe.stage_seconds.items()}
+    seen["stages"] = stages
     log(f"[{label}] main path on {card}: {len(dataset)} utterances aligned in"
         f" {wall:.3f} s -> {len(dataset) / wall:.3f} utts/s; stage seconds "
         f"{json.dumps(stages)}")
@@ -2615,9 +2743,13 @@ def main_path_phase(card: str):
         scp = make_timit_corpus(d, n_utts=N_UTTS, seconds=(2.0, 7.0),
                                 words_per_utt=(6, 10), seed=0)
         dataset = TIMIT(scp)
-        counts, seen = drive("default", pipeline(), dataset, expected(), card)
+        default_pipe = pipeline()
+        counts, seen = drive("default", default_pipe, dataset, expected(),
+                             card)
         check(seen["int8_steps"] == 0 and seen["reused"] == n_batches,
               "[default] the capture pass did not reuse the decode K/V")
+        counts_int8 = int8_encoder_phase(default_pipe, seen["stages"],
+                                         pipeline, dataset, expected, card)
 
         with environ(WCA_CROSS_ATTN="pallas", WCA_MEL_IMPL="pallas"):
             quant = expected(
@@ -2659,10 +2791,262 @@ def main_path_phase(card: str):
     cli_counts["probe"] = probe_phase(model, tok, card)
     log(f"tiny model CLI, card vs CPU: {tiny_cli_phase()}")
     long_form_phases(model, tok, card)
-    return counts, counts2, cli_counts, seen["dtw_inputs"]
+    return counts, counts2, counts_int8, cli_counts, seen["dtw_inputs"]
+
+
+def int8_encoder_phase(default_pipe, default_stages, pipeline, dataset,
+                       expected, card: str) -> dict:
+    """The main path with the int8 encoder (``encoder_int8``): 16/16
+    aligned, DTW equal to the NumPy oracle, and exactly 6 launches of each
+    int8 kernel per encoder layer and run (q, k and v quantize the same
+    rows separately, as JAX does). The encoder stage beside the bf16 run's,
+    and the int8 encoder states' error against the bf16 ones on one
+    batch."""
+    from whisper_char_alignment_tpu_torch.config import MODEL_DIMS
+    from whisper_char_alignment_tpu_torch.models import whisper as wm
+
+    dims = MODEL_DIMS["medium"]
+    runs = -(-len(dataset) // BATCH)
+    per_run = 6 * dims.n_audio_layer
+    pipe = pipeline(encoder_int8=True)
+    check(wm.encoder_is_int8(pipe.model), "[int8 encoder] not quantized")
+    counts, seen = drive("int8 encoder", pipe, dataset, expected(
+        int8_quant=lambda seen: per_run * runs,
+        int8_dequant=lambda seen: per_run * runs), card)
+    # each run's own stages (the oracle's batch after it is not counted)
+    bf16_s = default_stages["encoder"]
+    int8_s = seen["stages"]["encoder"]
+    log(f"[int8 encoder] encoder stage {int8_s:.4f} s against bf16 "
+        f"{bf16_s:.4f} s per {len(dataset)} utterances ({int8_s / bf16_s:.3f}"
+        f"x) on {card}")
+    batch = [dataset[i] for i in range(BATCH)]
+    xa = default_pipe.transcribe_batch(batch)[2].float()
+    xa8 = pipe.transcribe_batch(batch)[2].float()
+    diff = (xa8 - xa).abs()
+    big, mean = diff.max().item(), diff.mean().item()
+    log(f"[int8 encoder] states against bf16: max abs diff {big:.4g} "
+        f"({big / xa.abs().max().item():.4g} of the largest state), mean "
+        f"{mean:.4g} ({mean / xa.abs().mean().item():.4g} of the mean)")
+    return counts
+
+
+MESH_UTTS = 8
+# (label, (n_data, n_model), compute dtype, AlignConfig overrides): f32
+# runs are held equal to one process, bf16 ones logged, the int8 run's
+# encoder states held bit-equal to one rank's
+MESH_RUNS = (("tp2 f32", (1, 2), "float32", {}),
+             ("dp2 f32", (2, 1), "float32", {}),
+             ("tp2 bf16", (1, 2), "bfloat16", {}),
+             ("dp2 bf16", (2, 1), "bfloat16", {}),
+             ("int8 tp2 bf16", (1, 2), "bfloat16", dict(encoder_int8=True)))
+
+
+def mesh_pipeline(model, tok, dtype: str, mesh=None, **over):
+    import torch
+
+    from whisper_char_alignment_tpu_torch.config import AlignConfig
+    from whisper_char_alignment_tpu_torch.models import decoding
+    from whisper_char_alignment_tpu_torch.runner import AlignmentPipeline
+
+    cfg = AlignConfig.recommended(model="medium", batch_size=BATCH,
+                                  use_gt_transcript=True, **over)
+    pipe = AlignmentPipeline(model, tok, cfg, mesh=mesh, device=model.device,
+                             compute_dtype=getattr(torch, dtype))
+    pipe.options = decoding.DecodingOptions(language="en",
+                                            sample_len=DECODE_LEN)
+    return pipe
+
+
+def mesh_run(pipe, scp: str) -> dict:
+    """One ``run_dataset`` with the launch counts and the graph runner's
+    record from just before to just after."""
+    import torch
+
+    from whisper_char_alignment_tpu_torch.data.dataset import TIMIT
+    from whisper_char_alignment_tpu_torch.models import decode_graph
+    from whisper_char_alignment_tpu_torch.ops import _lib
+
+    sync = (torch.cuda.synchronize if pipe.device.type == "cuda"
+            else lambda: None)
+    _lib.reset_launches()
+    replays = decode_graph.replay_record()["replays"]
+    sync()
+    t0 = time.perf_counter()
+    results = list(pipe.run_dataset(TIMIT(scp), progress=False))
+    sync()
+    return dict(results=[(r.fid, r.words, r.start_times, r.end_times)
+                         for r in results],
+                wall=time.perf_counter() - t0, counts=_lib.launch_counts(),
+                replays=decode_graph.replay_record()["replays"] - replays,
+                stages={k: round(v, 4) for k, v in pipe.stage_seconds.items()})
+
+
+def mesh_worker(rank: int, world: int, init: str, job_path: str) -> int:
+    """One gloo rank of the mesh phase on the named card ``cuda:0``: every
+    run of ``MESH_RUNS`` on the medium model of seed 0, its results, launch
+    counts, graph replays, wall and stages (and the int8 run's encoder
+    states of the job's mel) pickled for the parent."""
+    import torch
+
+    from whisper_char_alignment_tpu_torch.config import MODEL_DIMS
+    from whisper_char_alignment_tpu_torch.models import whisper as wm
+    from whisper_char_alignment_tpu_torch.parallel import distributed
+    from whisper_char_alignment_tpu_torch.parallel.mesh import make_mesh
+    from whisper_char_alignment_tpu_torch.text.tokenizer import \
+        get_test_tokenizer
+
+    with open(job_path, "rb") as f:
+        job = pickle.load(f)
+    distributed.initialize(init, world, rank, backend="gloo")
+    try:
+        dev = torch.device(job["device"])
+        model = wm.init_params(
+            wm.Whisper(MODEL_DIMS[job["model"]], device=dev,
+                       dtype=torch.bfloat16),
+            torch.Generator(device=dev).manual_seed(0))
+        out = {}
+        for label, (n_data, n_model), dtype, over in MESH_RUNS:
+            mesh = make_mesh(n_data, n_model, device=dev)
+            pipe = mesh_pipeline(model, get_test_tokenizer(), dtype, mesh,
+                                 **over)
+            out[label] = mesh_run(pipe, job["scp"])
+            out[label]["place"] = (mesh.data_index, mesh.model_index)
+            if over.get("encoder_int8"):
+                out[label]["states"] = wm.encode_audio(
+                    pipe.model, job["mel"].to(dev), device=dev.type).cpu()
+            del pipe
+        with open(f"{job['out']}.{rank}", "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        distributed.shutdown()
+    return 0
+
+
+def mesh_phase(card: str, device: str = "cuda:0",
+               model_name: str = "medium") -> None:
+    """Two gloo ranks on the one card (device named ``cuda:0``), medium
+    width, 8 utterances, ground-truth transcripts: tensor parallelism over
+    2 ranks and data parallelism over 2, in float32 compute, give the
+    one-process run's words and boundaries (bf16 logged); the int8 encoder
+    under a model axis of 2 gives encoder states bit-equal to one rank's;
+    each rank's launch counts are exact; a model axis runs the decode
+    eagerly, a data axis replays its graphs. The kernels are already built
+    (phase 1), so the ranks load the library and run no nvcc. Gloo on one
+    card checks function only: its times say nothing of NCCL on several."""
+    import numpy as np
+    import torch
+
+    from whisper_char_alignment_tpu_torch.config import MODEL_DIMS
+    from whisper_char_alignment_tpu_torch.data.dataset import TIMIT
+    from whisper_char_alignment_tpu_torch.data.synthetic import make_timit_corpus
+    from whisper_char_alignment_tpu_torch.models import whisper as wm
+    from whisper_char_alignment_tpu_torch.ops import _lib
+    from whisper_char_alignment_tpu_torch.text.tokenizer import \
+        get_test_tokenizer
+
+    t_phase = time.perf_counter()
+    dims = MODEL_DIMS[model_name]
+    tok = get_test_tokenizer()
+    dev = torch.device(device)
+    check(dev.type == "cpu" or _lib.build_info.get("path") is not None,
+          "kernels not built")
+    model = wm.init_params(wm.Whisper(dims, device=dev, dtype=torch.bfloat16),
+                           torch.Generator(device=dev).manual_seed(0))
+    with tempfile.TemporaryDirectory(prefix="smoke_corpus_mesh_",
+                                     dir=os.path.join(HERE, "build")) as d:
+        scp = make_timit_corpus(os.path.join(d, "corpus"), n_utts=MESH_UTTS,
+                                seconds=(2.0, 7.0), words_per_utt=(6, 10),
+                                seed=1)
+        int8_one = mesh_pipeline(model, tok, "bfloat16", encoder_int8=True)
+        ds = TIMIT(scp)
+        mel = int8_one.transcribe_batch([ds[i] for i in range(len(ds))])[1]
+        mel = mel.cpu()
+        job = dict(scp=scp, mel=mel, out=os.path.join(d, "rank"),
+                   device=device, model=model_name)
+        job_path = os.path.join(d, "job.pkl")
+        with open(job_path, "wb") as f:
+            pickle.dump(job, f)
+        init = "file://" + os.path.join(d, "rendezvous")
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-worker",
+             str(r), "2", init, job_path]) for r in range(2)]
+        try:
+            # the one-process runs meanwhile, on the same card
+            one = {}
+            for label, _, dtype, over in MESH_RUNS:
+                key = (dtype, bool(over))
+                if key not in one:
+                    pipe = mesh_pipeline(model, tok, dtype, **over)
+                    one[key] = mesh_run(pipe, scp)
+                    del pipe
+            states = wm.encode_audio(int8_one.model, mel.to(dev),
+                                     device=dev.type).cpu()
+            for p in procs:
+                p.wait(timeout=600)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        check(all(p.returncode == 0 for p in procs),
+              f"mesh ranks exited with {[p.returncode for p in procs]}")
+        ranks = []
+        for r in range(2):
+            with open(f"{job['out']}.{r}", "rb") as f:
+                ranks.append(pickle.load(f))
+
+    def same(a, b) -> int:
+        """How many of the results differ (fid order, words, times)."""
+        check(len(a) == len(b) == MESH_UTTS, f"{len(a)}, {len(b)} results")
+        return sum(not (x[0] == y[0] and x[1] == y[1]
+                        and np.array_equal(x[2], y[2])
+                        and np.array_equal(x[3], y[3])) for x, y in zip(a, b))
+
+    def expected(int8: bool) -> dict:
+        out = dict.fromkeys(_lib.LAUNCHES, 0)
+        if dev.type == "cpu":  # a rehearsal: plain versions, no graphs
+            return out
+        out.update(encoder_attn=dims.n_audio_layer, qkpost=dims.n_text_layer,
+                   dtw_trace=1, dtw_backtrace=1)
+        if int8:
+            out.update(int8_quant=6 * dims.n_audio_layer,
+                       int8_dequant=6 * dims.n_audio_layer)
+        return out
+
+    for key, run in one.items():
+        log(f"[mesh] one process {key[0]}{' int8' if key[1] else ''}: "
+            f"{run['wall']:.3f} s, stages {json.dumps(run['stages'])}")
+    for label, (n_data, n_model), dtype, over in MESH_RUNS:
+        ref = one[(dtype, bool(over))]
+        for r, out in enumerate(ranks):
+            run = out[label]
+            n_diff = same(run["results"], ref["results"])
+            log(f"[mesh] {label} rank {r} (data {run['place'][0]}, model "
+                f"{run['place'][1]}), gloo, one card: {run['wall']:.3f} s, "
+                f"{run['replays']} graph replays, stages "
+                f"{json.dumps(run['stages'])}; {MESH_UTTS - n_diff}/"
+                f"{MESH_UTTS} results equal to one process's")
+            check(run["counts"] == expected(bool(over)),
+                  f"[mesh] {label} rank {r}: launch counts {run['counts']}")
+            check(dev.type == "cpu" or (run["replays"] == 0) == (n_model > 1),
+                  f"[mesh] {label} rank {r}: {run['replays']} graph replays")
+            if dtype == "float32":
+                check(n_diff == 0, f"[mesh] {label} rank {r}: {n_diff} "
+                      "results differ from one process's")
+            if "states" in run:
+                check(torch.equal(run["states"], states),
+                      f"[mesh] {label} rank {r}: encoder states not "
+                      "bit-equal to one rank's")
+                log(f"[mesh] {label} rank {r}: int8 encoder states bit-equal"
+                    " to one rank's")
+    log(f"[mesh] phase done in {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        sys.path.insert(0, HERE)
+        return mesh_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                           sys.argv[5])
     try:
         import torch
     except ImportError as e:
@@ -2701,9 +3085,11 @@ def main() -> int:
             log(f"  {line.strip()}")
 
     rows = kernel_phase()
-    counts, counts2, cli_counts, dtw_inputs = main_path_phase(card)
+    counts, counts2, counts_int8, cli_counts, dtw_inputs = main_path_phase(
+        card)
     check(dtw_inputs is not None, "the default main path ran no DTW")
     dtw_main_shape(dtw_inputs)
+    mesh_phase(card)
     # each row's launches come from the run whose path holds its kernel: the
     # default run, the int8 + bucket run for the mel and cross-attention
     # kernels, the CLI's width-17 run for the QK post-process's network at
@@ -2713,6 +3099,8 @@ def main() -> int:
         run, counter = counts, name
         if name.startswith(("mel", "cross_attn")):
             run = counts2
+        elif name.startswith("int8"):
+            run = counts_int8
         elif name == "dtw_trace_batch":
             counter = "dtw_trace"
         elif name in ("qkpost_w17", "qkpost_rank"):

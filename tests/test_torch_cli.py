@@ -7,12 +7,16 @@
   figure an utterance.
 - the probe's per-head DTW sweep: layer chunks and the frame slice equal the
   single full-width launch, and JAX's sweep.
-- refused flags, the platform switch, the stage timers and the trace."""
+- the flags the port once refused (``--encoder_int8``, ``--multihost``,
+  ``--data_parallel``/``--tensor_parallel`` 2) against the JAX CLIs with the
+  same flags; the platform switch, the stage timers and the trace."""
 
 import glob
 import json
 import os
+import pickle
 
+import joblib
 import numpy as np
 import pytest
 import torch
@@ -27,6 +31,7 @@ from whisper_char_alignment_tpu.cli import common as jcommon
 from whisper_char_alignment_tpu.cli import infer_ali as jinfer
 from whisper_char_alignment_tpu.cli import probe_oracle as jprobe
 from whisper_char_alignment_tpu.config import tiny_test_dims
+from whisper_char_alignment_tpu.models import convert as jconvert
 from whisper_char_alignment_tpu.models import whisper as jwhisper
 from whisper_char_alignment_tpu.text.tokenizer import \
     get_test_tokenizer as jax_test_tokenizer
@@ -38,6 +43,8 @@ from whisper_char_alignment_tpu_torch.text.tokenizer import get_test_tokenizer
 from whisper_char_alignment_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def banded_attentions(sot_len: int, star=None, ones_elsewhere=False):
@@ -162,13 +169,46 @@ def test_per_head_dtw_sweep_matches_jax(monkeypatch, chunk, frame_slice):
     (["--data_parallel", "2"], "item 9"), (["--tensor_parallel", "2"],
                                            "item 9")])
 def test_refused_flags_name_their_item(tmp_path, monkeypatch, flag, item):
+    """The flags of ROADMAP items 7 (int8 encoder) and 9 (multi-GPU), once
+    refused, run: ``infer_ali`` and ``probe_oracle`` with each give the JAX
+    CLIs' metrics with the same flag, and ``infer_ali`` their words and
+    boundaries, on the port's ``--test_model`` weights carried into JAX. A
+    mesh of 2 here is a second process that draws those weights itself;
+    ``--multihost`` alone is a world of one. The int8 boundaries may move by
+    one frame (tests/test_torch_encoder_int8.py says why)."""
+    monkeypatch.chdir(REPO)
     monkeypatch.setenv("WCA_PLATFORM", "cpu")
-    argv = ["--scp", "sample/test.scp", "--output_dir", str(tmp_path),
-            "--test_model"] + flag
-    for cli in (infer_ali, probe_oracle):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-            cli.main(argv)
-    assert not os.listdir(tmp_path)
+    args = infer_ali.parse_args(["--output_dir", "x", "--test_model"])
+    model, tok = common.load_model_and_tokenizer(args, "cpu")
+    dims = jcommon.load_model_and_tokenizer(args)[1]
+    params = jconvert.from_openai_state_dict(
+        {k: v.numpy() for k, v in model.state_dict().items()}, dims)
+    monkeypatch.setattr(jcommon, "load_model_and_tokenizer", lambda a: (
+        jcommon._maybe_quantize(params, a), dims, jax_test_tokenizer()))
+    argv = ["--scp", "sample/test.scp", "--test_model", "--use_gt_transcript",
+            "--decode_sample_len", "8", "--aligned_unit_type", "char",
+            "--aggr", "topk", "--topk", "2", "--medfilt_width", "3"] + flag
+    for name, cli, jcli in (("infer", infer_ali, jinfer),
+                            ("probe", probe_oracle, jprobe)):
+        extra = ["--save_prediction"] if name == "infer" else []
+        want = jcli.main(argv + extra + ["--output_dir",
+                                         str(tmp_path / "jax" / name)])
+        got = cli.main(argv + extra + ["--output_dir",
+                                       str(tmp_path / "port" / name)])
+        assert got == want, (name, got, want)
+    (jpkl,) = glob.glob(str(tmp_path / "jax" / "infer" / "*-predictions*"))
+    (tpkl,) = glob.glob(str(tmp_path / "port" / "infer" / "*-predictions*"))
+    assert os.path.basename(tpkl)[-7:] == os.path.basename(jpkl)[-7:]
+    theirs = joblib.load(jpkl)
+    with open(tpkl, "rb") as f:
+        ours = pickle.load(f)
+    assert sorted(ours) == sorted(theirs) == [0]
+    assert ours[0]["predwords"] == theirs[0]["predwords"]
+    assert len(ours[0]["predwords"]) >= 2
+    frame = 1 / 50 if flag == ["--encoder_int8"] else 0
+    for key in ("starts_hat", "ends_hat"):
+        np.testing.assert_allclose(ours[0][key], theirs[0][key], rtol=0,
+                                   atol=frame + 1e-9)
 
 
 def test_platform_switch(monkeypatch):

@@ -11,7 +11,8 @@ import torch
 from whisper_char_alignment_tpu_torch.models import whisper as tw
 from whisper_char_alignment_tpu_torch.ops import (_lib, cross_attn_cuda,
                                                   dtw_cuda, encoder_attn_cuda,
-                                                  mel_cuda, qkpost_cuda)
+                                                  int8_cuda, mel_cuda,
+                                                  qkpost_cuda)
 
 pytestmark = pytest.mark.gpu
 
@@ -600,3 +601,83 @@ def test_serve_round_trip_on_the_card(cuda, tmp_path):
         srv.batcher.close()
         srv.tbatcher.close()
         t.join(timeout=60)
+
+
+# (M, K, N): Whisper-medium's six linear shapes at one window, tiny ones, a
+# short M (the int8 product pads it to 17), and the widest row the quantize
+# kernel holds
+_INT8_CASES = [(1500, 1024, 1024), (1500, 1024, 4096), (1500, 4096, 1024),
+               (40, 32, 16), (9, 16, 8), (64, 8192, 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", _INT8_CASES)
+def test_int8_kernels_bit_equal(cuda, dtype, m, k, n):
+    """Both int8 passes bit-equal to their plain versions (a zero row takes
+    scale 1; a row max given from elsewhere, as a row-split layer passes
+    it), one launch each; the int8 product exact."""
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = (torch.randn(m, k, device=cuda, generator=g) * 3).to(dtype)
+    x[m // 2] = 0
+    before = _lib.launch_counts()
+    codes, scales = int8_cuda.quantize_rows(x)
+    after = _lib.launch_counts()
+    assert after["int8_quant"] == before["int8_quant"] + 1
+    want = int8_cuda.quantize_rows_plain(x)
+    assert torch.equal(codes, want[0]) and torch.equal(scales, want[1])
+    amax = x.float().abs().amax(dim=-1, keepdim=True) * 1.5
+    got = int8_cuda.quantize_rows(x, amax)
+    want = int8_cuda.quantize_rows_plain(x, amax)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    w8 = torch.randint(-127, 128, (n, k), dtype=torch.int8, device=cuda,
+                       generator=g)
+    y = int8_cuda.int_mm(codes, w8)
+    assert torch.equal(y.double(), codes.double() @ w8.double().t())
+    s = torch.rand(n, device=cuda, generator=g) * 1e-2
+    for bias in (None, torch.randn(n, device=cuda, generator=g).to(dtype)):
+        n0 = _lib.launch_counts()["int8_dequant"]
+        got = int8_cuda.dequantize(y, scales, s, bias, dtype)
+        assert _lib.launch_counts()["int8_dequant"] == n0 + 1
+        assert torch.equal(got, int8_cuda.dequantize_plain(y, scales, s,
+                                                           bias, dtype))
+
+
+def test_int8_kernels_refuse_what_they_do_not_take(cuda):
+    x = torch.zeros(32, 12, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        int8_cuda.quantize_rows(x)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        int8_cuda.quantize_rows(torch.zeros(32, 8200, device=cuda))
+    with pytest.raises(ValueError, match="float32"):
+        int8_cuda.quantize_rows(x.to(torch.float16)[:, :8])
+    y = torch.zeros(32, 6, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        int8_cuda.dequantize(y, torch.ones(32, 1, device=cuda),
+                             torch.ones(6, device=cuda), None, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_encoder_on_the_card(cuda, dtype):
+    """The int8 encoder's states on the card equal its plain linears' (the
+    kernels swapped for their plain versions), and each encoder run
+    launches each pass 6 times a layer."""
+    from whisper_char_alignment_tpu_torch.config import tiny_test_dims
+
+    dims = tiny_test_dims(n_vocab=64, n_audio_ctx=64, n_text_ctx=16,
+                          state=64, head=2, layers=2)
+    model = tw.init_params(tw.Whisper(dims, device="cpu"),
+                           torch.Generator().manual_seed(0))
+    q = tw.cast_params(tw.quantize_encoder_int8(model), dtype, cuda)
+    mel = torch.randn(3, dims.n_mels, 2 * dims.n_audio_ctx,
+                      generator=torch.Generator().manual_seed(1)).to(cuda)
+    before = _lib.launch_counts()
+    got = tw.encode_audio(q, mel)
+    after = _lib.launch_counts()
+    for name in ("int8_quant", "int8_dequant"):
+        assert after[name] - before[name] == 6 * dims.n_audio_layer
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(int8_cuda, "quantize_rows",
+                   int8_cuda.quantize_rows_plain)
+        mp.setattr(int8_cuda, "dequantize", int8_cuda.dequantize_plain)
+        want = tw.encode_audio(q, mel)
+    assert torch.equal(got, want)

@@ -24,12 +24,14 @@ from whisper_char_alignment_tpu import runner as jrunner
 from whisper_char_alignment_tpu.config import AlignConfig as JaxAlignConfig
 from whisper_char_alignment_tpu.data.dataset import TIMIT as JaxTIMIT
 from whisper_char_alignment_tpu.data.synthetic import make_timit_corpus
+from whisper_char_alignment_tpu.parallel import mesh as jmesh
 from whisper_char_alignment_tpu_torch import api as tapi
 from whisper_char_alignment_tpu_torch import runner as trunner
 from whisper_char_alignment_tpu_torch.config import AlignConfig, ModelDims
 from whisper_char_alignment_tpu_torch.data.dataset import TIMIT
 from whisper_char_alignment_tpu_torch.models import convert as tconvert
 from whisper_char_alignment_tpu_torch.ops import _lib
+from whisper_char_alignment_tpu_torch.parallel import mesh as tmesh
 from whisper_char_alignment_tpu_torch.text.tokenizer import get_test_tokenizer
 from whisper_char_alignment_tpu_torch.utils.device import resolve_device
 
@@ -122,16 +124,35 @@ def test_test_model_is_seeded_and_refuses_a_missing_gpu(monkeypatch):
     dict(encoder_int8=True), dict(encoder_int8=True, decode_kv_int8=True),
     dict(data_parallel=2), dict(tensor_parallel=2), "mesh"])
 def test_unported_pipeline_options_raise(setup, override):
-    _, model, _ = setup
-    kw = {}
-    cfg = AlignConfig.recommended(model="test")
+    """The options the port once refused (ROADMAP items 7 and 9) run and
+    give the JAX pipeline's words and boundaries: the int8 encoder (alone
+    and with int8 decode K/V; its boundaries may move by one frame,
+    tests/test_torch_encoder_int8.py says why), the mesh-size fields, which
+    the pipeline leaves to the CLIs as JAX's does, and a mesh of one rank
+    beside JAX's one-device mesh. Meshes of several ranks:
+    tests/test_torch_parallel.py."""
+    jm, model, scp = setup
+    kw, jkw, frame = {}, {}, 0.0
+    cfg, jcfg = _cfg(AlignConfig, "topk"), _cfg(JaxAlignConfig, "topk")
     if override == "mesh":
-        kw["mesh"] = object()
+        kw["mesh"] = tmesh.make_mesh(1, device="cpu")
+        jkw["mesh"] = jmesh.make_mesh(1)
     else:
         cfg = dataclasses.replace(cfg, **override)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trunner.AlignmentPipeline(model, get_test_tokenizer(), cfg,
-                                  device="cpu", **kw)
+        jcfg = dataclasses.replace(jcfg, **override)
+        frame = 1 / 50 if override.get("encoder_int8") else 0.0
+    tp = trunner.AlignmentPipeline(model, get_test_tokenizer(), cfg,
+                                   device="cpu", **kw)
+    jp = jrunner.AlignmentPipeline(jm.params, jm.dims, jm.tokenizer, jcfg,
+                                   **jkw)
+    ours = list(tp.run_dataset(TIMIT(scp), progress=False))
+    theirs = list(jp.run_dataset(JaxTIMIT(scp), progress=False))
+    assert len(ours) == len(theirs) == 4
+    for a, b in zip(ours, theirs):
+        assert a.fid == b.fid and a.words == b.words and len(a.words) >= 2
+        for x, y in ((a.start_times, b.start_times),
+                     (a.end_times, b.end_times)):
+            np.testing.assert_allclose(x, y, rtol=0, atol=frame + 1e-9)
 
 
 def test_pack_fixed_batch_matches_jax():
@@ -166,10 +187,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "data.dataset", "data.synthetic", "models.beam", "models.convert",
             "models.decode_graph", "models.decoding", "models.whisper",
             "ops.cross_attn_cuda", "ops.dtw", "ops.dtw_cuda",
-            "ops.encoder_attn_cuda", "ops.medfilt", "ops.mel_cuda",
-            "ops.qkpost_cuda", "ops._lib", "text.bpe", "text.numwords",
-            "text.retokenize", "text.tokenizer", "utils.device",
-            "utils.profiling", "utils.unported", "utils.writers", "viz.plot"]
+            "ops.encoder_attn_cuda", "ops.int8_cuda", "ops.medfilt",
+            "ops.mel_cuda", "ops.qkpost_cuda", "ops._lib",
+            "parallel.distributed", "parallel.dryrun", "parallel.mesh",
+            "text.bpe", "text.numwords", "text.retokenize", "text.tokenizer",
+            "utils.device", "utils.profiling", "utils.writers", "viz.plot"]
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -14,8 +14,8 @@ WAV bytes in, JSON out), mirroring tests/test_serve.py.
 - concurrent requests share micro-batches and each equals its solo twin;
   mixed recipe keys never share a batch; a 413 before the body is read; a
   timed-out request withdraws itself; the pipeline LRU; device work runs on
-  the two dispatcher threads only; options the port lacks raise their
-  ROADMAP item;
+  the two dispatcher threads only; the overrides and flags of ROADMAP
+  items 7 and 9 (once refused) run and match the JAX batcher;
 - the warmups: their run counts, and with the CUDA graph stubbed as in
   tests/test_torch_decode_graph.py, no graph captured by a first request of
   a warmed shape.
@@ -34,8 +34,14 @@ import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
 from test_torch_transcribe import _setup, assert_like_jax, jax_window_noise
 from whisper_char_alignment_tpu import api as japi
+from whisper_char_alignment_tpu.cli import common as jcommon
+from whisper_char_alignment_tpu.cli import serve as jserve
+from whisper_char_alignment_tpu.models import convert as jconvert
+from whisper_char_alignment_tpu.models import whisper as jwhisper
 from whisper_char_alignment_tpu.text.tokenizer import \
     get_test_tokenizer as jax_tokenizer
 from whisper_char_alignment_tpu_torch import api as tapi
@@ -46,6 +52,7 @@ from whisper_char_alignment_tpu_torch.cli.serve import (AlignBatcher, serve,
                                                         warmup_transcribe)
 from whisper_char_alignment_tpu_torch.models import beam as tbeam
 from whisper_char_alignment_tpu_torch.models import decode_graph, decoding
+from whisper_char_alignment_tpu_torch.models import whisper as tw
 
 torch.set_num_threads(1)
 
@@ -366,18 +373,75 @@ def test_pipe_cache_is_lru_bounded():
     (dict(encoder_int8=True), "item 7"), (dict(data_parallel=2), "item 9"),
     (dict(tensor_parallel=2), "item 9")])
 def test_unported_overrides_name_their_item(over, item):
-    model, _ = _models()
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        AlignBatcher(model, torch.float32, config_overrides=over,
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        serve(model, port=0, config_overrides=over, device="cpu")
+    """The overrides of ROADMAP items 7 and 9, once refused, run: an /align
+    batch under each gives the JAX batcher's words and boundaries under the
+    same override (transcripts pinned; the int8 encoder's boundaries within
+    a frame, tests/test_torch_encoder_int8.py says why; the mesh sizes are
+    read by the CLIs only, in both packages), and ``serve`` builds with
+    it."""
+    model, jmodel = _models()
+    over = dict(over, decode_sample_len=4)
+    b = AlignBatcher(model, torch.float32, batch_size=2, linger_ms=0.0,
+                     config_overrides=over, device="cpu")
+    jb = jserve.AlignBatcher(jmodel, jnp.float32, batch_size=2, linger_ms=0.0,
+                             config_overrides=over)
+    b.pipe_hook = jb.pipe_hook = _pin_transcripts
+    frame = 1 / 50 if over.get("encoder_int8") else 0.0
+    try:
+        for seed in (1, 2):
+            key = ("char", "topk", 2, 3)
+            got = b.submit(_samples(0.4, seed), key)
+            want = jb.submit(_samples(0.4, seed), key)
+            assert got.words == want.words and len(got.words) >= 2
+            for x, y in ((got.start_times, want.start_times),
+                         (got.end_times, want.end_times)):
+                np.testing.assert_allclose(x, y, rtol=0, atol=frame + 1e-9)
+        pipe = next(iter(b._pipes.values()))
+        assert tw.encoder_is_int8(pipe.model) == bool(
+            over.get("encoder_int8"))
+    finally:
+        b.close()
+        jb.close()
+    srv = serve(model, port=0, config_overrides=over, device="cpu")
+    srv.server_close()
+    srv.batcher.close()
+    srv.tbatcher.close()
 
 
 def test_main_refuses_unported_flags(monkeypatch):
+    """``--encoder_int8``, once refused, quantizes the served model at load:
+    its codes and scales are JAX's quantization of the same
+    ``--test_model`` weights. A guard without its bucket still exits."""
     monkeypatch.setenv("WCA_PLATFORM", "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
-        serve_mod.main(["--test_model", "--encoder_int8", "--port", "0"])
+    served = {}
+
+    class _Srv:
+        batcher = tbatcher = types.SimpleNamespace(close=lambda: None)
+
+        def serve_forever(self):
+            pass
+
+    def fake_serve(model, *a, **kw):
+        served["model"] = model
+        return _Srv()
+
+    monkeypatch.setattr(serve_mod, "serve", fake_serve)
+    assert serve_mod.main(["--test_model", "--encoder_int8", "--port",
+                           "0"]) == 0
+    q = served["model"].model
+    assert tw.encoder_is_int8(q)
+    plain, _ = serve_mod.common.load_model_and_tokenizer(
+        types.SimpleNamespace(test_model=True, n_mels=80), "cpu")
+    dims = jcommon.load_model_and_tokenizer(types.SimpleNamespace(
+        test_model=True, n_mels=80))[1]
+    jq = jwhisper.quantize_encoder_int8(jconvert.from_openai_state_dict(
+        {k: v.numpy() for k, v in plain.state_dict().items()}, dims))
+    leaf = jq["encoder"]["blocks"]["mlp"]["fc1"]
+    for i, blk in enumerate(q.encoder.blocks):
+        np.testing.assert_array_equal(blk.mlp[0].w8.numpy(),
+                                      np.asarray(leaf["w8"])[i].T)
+        np.testing.assert_array_equal(blk.mlp[0].s.numpy(),
+                                      np.asarray(leaf["s"])[i, 0])
     with pytest.raises(SystemExit):
         serve_mod.main(["--test_model", "--decode_frame_bucket_guarded"])
 

@@ -146,15 +146,35 @@ def test_transcribe_cli_matches_jax_cli(tmp_path, monkeypatch, aggr):
 
 def test_transcribe_cli_refuses_unported_and_runs_on_the_card_by_default(
         tmp_path, monkeypatch):
-    from whisper_char_alignment_tpu_torch.utils.unported import ROADMAP_ITEMS
-
+    """``--encoder_int8`` (ROADMAP item 7, once refused) runs: the CLI
+    quantizes at load, as JAX's does, and writes the JAX CLI's files with
+    the same flag on the same weights. And the CLI wants the card unless
+    ``WCA_PLATFORM=cpu``."""
+    tok, dims, params, model = _setup()
     monkeypatch.setenv("WCA_PLATFORM", "cpu")
+    monkeypatch.setattr(common, "load_model_and_tokenizer",
+                        lambda args, device=None: (
+                            common._maybe_quantize(model, args), tok))
+    monkeypatch.setattr(jcommon, "load_model_and_tokenizer",
+                        lambda args: (jcommon._maybe_quantize(params, args),
+                                      dims, jax_tokenizer()))
+    seen = []
+    run = tcli.transcribe
+    monkeypatch.setattr(tcli, "transcribe",
+                        lambda m, *a, **k: seen.append(m) or run(m, *a, **k))
     path = str(tmp_path / "a.wav")
-    wav_save(path, np.zeros(1600, np.float32), 16000)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tcli.main([path, "--test_model", "--encoder_int8", "--output_dir",
-                   str(tmp_path / "o")])
-    assert "item 7" in ROADMAP_ITEMS["quantized"]
+    window = 2 * dims.n_audio_ctx * 160
+    wav_save(path, np.random.default_rng(1).normal(0, 0.05, window)
+             .astype(np.float32), 16000)
+    monkeypatch.setattr(tbeam, "noise_source", jax_window_noise())
+    argv = [path, "--test_model", "--model", "tiny-test", "--language", "en",
+            "--encoder_int8", "--output_format", "txt"]
+    assert tcli.main(argv + ["--output_dir", str(tmp_path / "port")]) == 0
+    assert jcli.main(argv + ["--output_dir", str(tmp_path / "jax")]) == 0
+    from whisper_char_alignment_tpu_torch.models import whisper as tw
+    assert seen and tw.encoder_is_int8(seen[0])
+    assert ((tmp_path / "port" / "a.txt").read_bytes()
+            == (tmp_path / "jax" / "a.txt").read_bytes())
     monkeypatch.delenv("WCA_PLATFORM")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -37,13 +37,21 @@ def get_attentions(model, mel: Optional[torch.Tensor], tokens: torch.Tensor,
     (B,) true token counts; frame_len (B,) true encoder frames. Returns
     (attn (L, B, H, T, F) post-softmax/masked f32, logits (B, T, vocab) or
     None). Pass ``xa`` (and ``cross_kv``) to reuse the transcription pass's
-    encoder states (and cross K/V); ``mel`` is then ignored."""
+    encoder states (and cross K/V); ``mel`` is then ignored.
+
+    A tensor-parallel rank's copy captures its own heads; they are gathered
+    over the model group along the head axis, in global head order, so head
+    scoring, its (layer, head) tie-break and the alignment-head gather see
+    every head."""
     if xa is None and cross_kv is None:
         xa = wmodel.encode_audio(model, mel, device=device)
     logits, attn = wmodel.decode_text(
         model, tokens, xa, return_qk=True, medfilt_width=medfilt_width,
         frame_len=frame_len, token_len=token_len, qk_scale=qk_scale,
         return_logits=return_logits, cross_kv=cross_kv, device=device)
+    group = getattr(model, "tp_group", None)
+    if group is not None:
+        attn = group.all_gather(attn, dim=2)
     return attn, logits
 
 

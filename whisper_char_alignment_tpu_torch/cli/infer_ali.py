@@ -15,16 +15,24 @@ Example (README-recommended recipe):
 The predictions pkl is written with the standard library's ``pickle``, not
 ``joblib``: ``joblib.load`` reads a plain pickle, so the reference's and the
 JAX package's ``eval_ali`` read it as they read their own.
+
+With several devices (``common.process_world``; JAX ``cli/infer_ali.py:26-60,
+106-130``): each replica aligns its round-robin shard of the scp, the
+counters are all-reduced, one output stem is broadcast from rank 0, rank 0
+writes the metrics JSON and, with ``--multihost``, each replica's first rank
+its shard's ``-pN`` predictions pkl.
 """
 
 from __future__ import annotations
 
 import argparse
 import pickle
+import time
 from collections import defaultdict
 
 from ..align.metrics import eval_n1, eval_n1_strict, get_seg_metrics
 from ..data.dataset import DATASETS
+from ..parallel import distributed
 from ..runner import AlignmentPipeline
 from ..utils.profiling import device_trace
 from . import common
@@ -34,8 +42,11 @@ def infer_dataset(args) -> dict:
     device = common.apply_platform_env()
     model, tok = common.load_model_and_tokenizer(args, device)
     cfg = common.config_from_args(args)
-    pipe = AlignmentPipeline(model, tok, cfg, device=device,
-                             compute_dtype=common.compute_dtype(args))
+    mesh = common.mesh_from_args(args, device)
+    pipe = AlignmentPipeline(
+        model, tok, cfg, device=device,
+        compute_dtype=common.compute_dtype(args),
+        mesh=mesh if mesh is not None and mesh.size > 1 else None)
 
     ds_kwargs = {}
     if getattr(args, "alignment_file", None):
@@ -43,7 +54,11 @@ def infer_dataset(args) -> dict:
         # discovers ls_alignment_{split}.txt from the corpus layout)
         ds_kwargs["alignment_file"] = args.alignment_file
     dataset = DATASETS[args.dataset](args.scp, n_mels=args.n_mels, **ds_kwargs)
+    if mesh is not None:
+        dataset.entries = distributed.shard_entries(
+            dataset.entries, mesh.replica, mesh.n_replicas)
 
+    leader = common.replica_leader(mesh)
     corrects = 0
     total_preds = 0
     total_gts = 0
@@ -61,7 +76,7 @@ def infer_dataset(args) -> dict:
                     starts=res.starts, ends=res.ends, texts=res.text.split(),
                     starts_hat=res.start_times, ends_hat=ends_hat,
                     predwords=res.words, fids=res.fid)
-            if args.plot and res.matrix is not None:
+            if args.plot and res.matrix is not None and leader:
                 from ..text.retokenize import encode as tok_encode
                 from ..viz.plot import plot_attn
 
@@ -90,13 +105,28 @@ def infer_dataset(args) -> dict:
     if getattr(args, "profile", False):
         pipe.timers.report()
 
+    if mesh is not None:
+        # every rank of a replica holds its results: its first rank counts
+        summed = distributed.allreduce_counters(
+            dict(corrects=corrects, total_preds=total_preds,
+                 total_gts=total_gts), contribute=leader)
+        corrects = summed["corrects"]
+        total_preds = summed["total_preds"]
+        total_gts = summed["total_gts"]
+
     precision, recall, f1, r_value, _ = get_seg_metrics(
         corrects, corrects, total_preds, total_gts)
     results = dict(precision=precision, recall=recall, f1=f1, r_value=r_value)
     print(results)
-    out = common.dump_results(args, results)
-    if args.save_prediction:
-        with open(out.replace(".json", "-predictions.pkl"), "wb") as f:
+    # one stem for the metrics JSON and every replica's predictions
+    stem = common.results_basename(
+        args, ts=distributed.broadcast_scalar(time.time()))
+    if distributed.process_index() == 0:
+        common.dump_results(args, results, stem=stem)
+    if args.save_prediction and leader:
+        suffix = (f"-p{0 if mesh is None else mesh.replica}"
+                  if args.multihost else "")
+        with open(f"{stem}-predictions{suffix}.pkl", "wb") as f:
             pickle.dump(all_predictions, f)
     return results
 
@@ -122,7 +152,8 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     print(args)
-    return infer_dataset(args)
+    with common.process_world(args, argv, f"{__package__}.infer_ali"):
+        return infer_dataset(args)
 
 
 if __name__ == "__main__":

@@ -16,6 +16,12 @@ package, ``pipeline_depth`` batches keep their transcribe in flight while a
 batch's capture and per-head DTW are queued, and one such batch stays queued
 while the host scores the one before it.
 
+With several devices (``common.process_world``; JAX
+``cli/probe_oracle.py:116-142``) each replica probes its round-robin shard
+of the scp, each data index its rows of a batch; the counters are
+all-reduced and rank 0 writes the JSON. ``hit_rate`` divides by the whole
+corpus.
+
 The per-head scoring loop in the reference crashes as committed (it scores
 ``best_ends_hat`` instead of the current head's boundaries and reads an
 unassigned variable, SURVEY.md §2a); this implements the intended
@@ -40,7 +46,9 @@ from ..constants import (AUDIO_SAMPLES_PER_TOKEN, MAX_FRAMES, MAX_LENGTH,
                          TOKENS_PER_SECOND)
 from ..data.dataset import DATASETS
 from ..models.decoding import DecodeFuture
-from ..runner import AlignmentPipeline, _pad_to_multiple, pack_fixed_batch
+from ..parallel import distributed
+from ..parallel.mesh import pad_to_multiple
+from ..runner import AlignmentPipeline, pack_fixed_batch
 from ..text import retokenize
 from . import common
 
@@ -100,10 +108,19 @@ def infer_dataset(args) -> dict:
     cfg = common.config_from_args(args)
     # the probe's capture never consumes the decode loop's cross K/V
     cfg.reuse_cross_kv = False
-    pipe = AlignmentPipeline(model, tok, cfg, device=device,
-                             compute_dtype=common.compute_dtype(args))
+    mesh = common.mesh_from_args(args, device)
+    pipe = AlignmentPipeline(
+        model, tok, cfg, device=device,
+        compute_dtype=common.compute_dtype(args),
+        mesh=mesh if mesh is not None and mesh.size > 1 else None)
     dims = pipe.dims
     dataset = DATASETS[args.dataset](args.scp, n_mels=args.n_mels)
+    # the reference's hit_rate denominator is the whole corpus: taken
+    # before the replica's shard
+    global_len = len(dataset)
+    if mesh is not None:
+        dataset.entries = distributed.shard_entries(
+            dataset.entries, mesh.replica, mesh.n_replicas)
     timers = pipe.timers
 
     state = dict(corrects=0, total_preds=0, total_gts=0, if_include_best=0)
@@ -114,7 +131,9 @@ def infer_dataset(args) -> dict:
         saliency of every head and the per-head DTW, and start their
         outputs' copies to the host (reference semantics,
         probe_oracle.py:59-122, with the committed scoring bug fixed)."""
-        utts = tp["utts"]
+        utts = tp["utts"]  # this rank's rows of the batch
+        if not utts:
+            return None
         if cfg.use_gt_transcript:
             transcripts = [u.text for u in utts]
         else:
@@ -142,10 +161,10 @@ def infer_dataset(args) -> dict:
 
         # fixed shapes: the batch padded to the pipeline's batch size, the
         # tokens to its 32-token bucket (runner.pack_fixed_batch)
-        b_pad = max(cfg.batch_size, len(prepared))
+        b_pad = max(pipe.rows, len(prepared))
         t_max = max(len(p[2]) for p in prepared)
         t_bucket = min(dims.n_text_ctx,
-                       _pad_to_multiple(t_max, pipe.token_bucket))
+                       pad_to_multiple(t_max, pipe.token_bucket))
         tokens_arr, token_len, frame_len, xa_idx = pack_fixed_batch(
             [(p[0], p[2], p[3]) for p in prepared], utts, b_pad, t_bucket,
             tok.eot, dims.n_audio_ctx)
@@ -161,7 +180,7 @@ def infer_dataset(args) -> dict:
         # saliency of all heads (reference probe_oracle.py:83) and the DTW of
         # every (utterance, head), frame-sliced to the batch's bucketed
         # longest frame_len
-        f_slice = min(dims.n_audio_ctx, _pad_to_multiple(
+        f_slice = min(dims.n_audio_ctx, pad_to_multiple(
             int(frame_len[:len(prepared)].max()), FRAME_BUCKET))
         with timers.stage("head dtw", units=len(prepared)):
             scores_dev = timing.head_scores(attn, fl)
@@ -271,20 +290,27 @@ def infer_dataset(args) -> dict:
     while captured:
         collect_batch(captured.popleft())
 
+    counts = {k: state[k] for k in ("corrects", "total_preds", "total_gts",
+                                    "if_include_best")}
+    if mesh is not None:
+        # a data index scores its own rows; the model axis repeats them
+        counts = distributed.allreduce_counters(
+            counts, contribute=mesh.model_index == 0)
     precision, recall, f1, r_value, _ = get_seg_metrics(
-        state["corrects"], state["corrects"], state["total_preds"],
-        state["total_gts"])
+        counts["corrects"], counts["corrects"], counts["total_preds"],
+        counts["total_gts"])
     # hit_rate divides by the full dataset size, including the utterances
     # skipped above: the reference's exact behavior (probe_oracle.py:129
     # divides by the loader length)
     results = dict(precision=precision, recall=recall, f1=f1, r_value=r_value,
-                   hit_rate=state["if_include_best"] / max(len(dataset), 1))
+                   hit_rate=counts["if_include_best"] / max(global_len, 1))
     if getattr(args, "profile", False):
         for stage, s in timers.summary().items():
             print(f"stage {stage:>22s}: {s['total_s']:.3f}s total, "
                   f"{s.get('units_per_s', 0.0):.1f} utts/s", file=sys.stderr)
     print(results)
-    common.dump_results(args, results)
+    if distributed.process_index() == 0:
+        common.dump_results(args, results)
     return results
 
 
@@ -303,7 +329,8 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     print(args)
-    return infer_dataset(args)
+    with common.process_world(args, argv, f"{__package__}.probe_oracle"):
+        return infer_dataset(args)
 
 
 if __name__ == "__main__":

@@ -55,7 +55,7 @@ from .. import api
 from ..config import AlignConfig
 from ..data.dataset import Utterance
 from ..models import whisper as wmodel
-from ..runner import AlignmentPipeline, _reject_unported
+from ..runner import AlignmentPipeline
 from ..utils.device import resolve_device
 from . import common
 
@@ -211,7 +211,9 @@ class AlignBatcher(_MicroBatcher):
     batch. ``device_lock`` is shared with /transcribe so the two endpoints
     never interleave device work. The pipelines (one per recipe) are kept in
     an LRU of ``max_pipes``. ``config_overrides`` are extra AlignConfig
-    fields; an option the port does not carry raises here."""
+    fields (``encoder_int8`` quantizes each pipeline's encoder; as in the
+    JAX package, ``data_parallel``/``tensor_parallel`` are read by the CLIs
+    only); an unknown field raises here."""
 
     def __init__(self, model: api.Model, compute_dtype,
                  batch_size: int = 8, linger_ms: float = 5.0,
@@ -222,7 +224,7 @@ class AlignBatcher(_MicroBatcher):
         self.compute_dtype = compute_dtype
         self.device = resolve_device(device)
         self.config_overrides = dict(config_overrides or {})
-        _reject_unported(AlignConfig(**self.config_overrides))
+        AlignConfig(**self.config_overrides)
         self.max_pipes = max(1, max_pipes)
         self._pipes: "collections.OrderedDict" = collections.OrderedDict()
         # test seam: called with each newly built pipeline (e.g. to install a

@@ -149,7 +149,7 @@ def _group_setup(model, xa: torch.Tensor, prompt: np.ndarray,
     cross_kv = wmodel.precompute_cross_kv(model, xa)
     prompt_t = decoding.prompt_rows(prompt, b).to(dev)
     cache = wmodel.init_kv_cache(model.dims, b, spec.total, dtype=model.dtype,
-                                 device=dev)
+                                 device=dev, n_head=wmodel.text_heads(model))
     ns_prob = (torch.zeros(b, device=dev) if spec.no_speech is not None
                else torch.full((b,), float("nan"), device=dev))
     if spec.sample_begin >= 2:
@@ -334,11 +334,11 @@ def _beam_loop(model, xa: torch.Tensor, prompt: np.ndarray,
                suppress_mask: torch.Tensor, blank_mask: torch.Tensor,
                spec: GroupSpec):
     """The beam loop from encoder states xa (B, n_audio_ctx, d), run by
-    ``decoding.runner_for`` the device (a captured graph on a card). Returns
+    ``decoding.loop_runner`` (a captured graph on a card). Returns
     the outputs of :func:`beam_kind`."""
     st, cross_kv = beam_setup(model, xa, prompt, suppress_mask, blank_mask,
                               spec)
-    run = decoding.runner_for(xa.device)
+    run = decoding.loop_runner(model, xa.device)
     key = ("beam", spec, xa.shape[0], xa.shape[1], model.dtype)
     return run(model, key, beam_kind(model, spec), st, cross_kv,
                spec.total - spec.sample_begin)
@@ -469,11 +469,11 @@ def _sample_loop(model, xa: torch.Tensor, prompt: np.ndarray,
                  spec: GroupSpec, temperature: float,
                  noise: Callable[[int], torch.Tensor]):
     """The sampling loop from encoder states xa, run by
-    ``decoding.runner_for`` the device (a captured graph on a card).
+    ``decoding.loop_runner`` (a captured graph on a card).
     Returns the outputs of :func:`sample_kind`."""
     st, cross_kv = sample_setup(model, xa, prompt, suppress_mask, blank_mask,
                                 spec, temperature)
-    run = decoding.runner_for(xa.device)
+    run = decoding.loop_runner(model, xa.device)
     key = ("sample", spec, xa.shape[0], xa.shape[1], model.dtype)
     return run(model, key, sample_kind(model, spec, noise), st, cross_kv,
                spec.total - spec.sample_begin)

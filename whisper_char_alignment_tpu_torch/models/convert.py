@@ -11,7 +11,10 @@ module tree uses OpenAI whisper's own parameter names, so:
 - :func:`params_from_jax` turns the JAX package's parameter pytree (numpy
   arrays; layers stacked on axis 0; dense weights stored (in, out); conv
   weights already (C_out, C_in, K)) into the port's ``state_dict``, which is
-  how the tests carry the same weights across.
+  how the tests carry the same weights across. A tree quantized by JAX
+  ``quantize_encoder_int8`` carries its int8 ``w8`` (L, in, out) and
+  float32 ``s`` (L, 1, out) across as they are, and
+  :func:`model_from_state_dict` builds the int8 encoder for them.
 
 Orbax checkpoint directories stay with the JAX package (ROADMAP.md,
 "Departures kept on purpose").
@@ -28,14 +31,15 @@ import torch
 
 from ..config import MODEL_DIMS, ModelDims
 from ..utils.device import resolve_device
-from .whisper import Whisper, sinusoids
+from .whisper import Whisper, quantize_encoder_int8, sinusoids
 
 _ATTN_NAMES = (("query", "q"), ("key", "k"), ("value", "v"), ("out", "out"))
 
 
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX parameter pytree (numpy or array-likes) -> the port's state_dict
-    (float32 CPU tensors, OpenAI whisper names)."""
+    (float32 CPU tensors, OpenAI whisper names; int8 ``w8`` codes stay
+    int8)."""
     sd: Dict[str, torch.Tensor] = {}
 
     def put(name, arr):
@@ -43,7 +47,12 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
                                              order="C", copy=True))
 
     def put_dense(prefix, d, i):
-        put(f"{prefix}.weight", np.asarray(d["w"])[i].T)
+        if "w8" in d:
+            sd[f"{prefix}.w8"] = torch.from_numpy(np.ascontiguousarray(
+                np.asarray(d["w8"])[i].T.astype(np.int8)))
+            put(f"{prefix}.s", np.asarray(d["s"])[i, 0])
+        else:
+            put(f"{prefix}.weight", np.asarray(d["w"])[i].T)
         if "b" in d:
             put(f"{prefix}.bias", np.asarray(d["b"])[i])
 
@@ -88,14 +97,19 @@ def model_from_state_dict(sd: Dict[str, torch.Tensor], dims: ModelDims,
                           device=None, dtype=torch.float32) -> Whisper:
     """A :class:`Whisper` on ``device`` (cuda unless 'cpu' is asked for)
     holding ``sd``. A checkpoint without ``encoder.positional_embedding``
-    gets the sinusoids."""
+    gets the sinusoids; one with int8 ``w8`` leaves gets the int8 encoder,
+    its codes int8 and its scales float32."""
     dev = resolve_device(device)
     sd = dict(sd)
     if "encoder.positional_embedding" not in sd:
         sd["encoder.positional_embedding"] = torch.from_numpy(
             sinusoids(dims.n_audio_ctx, dims.n_audio_state))
     model = Whisper(dims, device=dev, dtype=dtype)
-    model.load_state_dict({k: v.to(dtype) for k, v in sd.items()})
+    if any(k.endswith(".w8") for k in sd):
+        model = quantize_encoder_int8(model)
+    model.load_state_dict({
+        k: (v.to(dtype) if v.is_floating_point() and not k.endswith(".s")
+            else v) for k, v in sd.items()})
     return model
 
 

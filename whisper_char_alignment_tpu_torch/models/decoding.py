@@ -406,6 +406,16 @@ def runner_for(device: torch.device):
     return run_eager
 
 
+def loop_runner(model, device: torch.device):
+    """The runner of ``model``'s loops: :func:`run_eager` for a
+    tensor-parallel rank's copy (its steps run collectives, which a CUDA
+    graph of a gloo group cannot hold; the choice is made up front), else
+    :func:`runner_for` the device."""
+    if getattr(model, "tp_group", None) is not None:
+        return run_eager
+    return runner_for(device)
+
+
 @dataclasses.dataclass(frozen=True)
 class LoopSpec:
     """What every step of one greedy decode does: the Python values the step
@@ -460,7 +470,7 @@ def loop_setup(model, xa: torch.Tensor, prompt: np.ndarray,
         xa_kv = xa[:, :kv_frames]
     cross_kv = wmodel.precompute_cross_kv(model, xa_kv, quantize=kv_int8)
     cache = wmodel.init_kv_cache(model.dims, b, spec.total, dtype=model.dtype,
-                                 device=dev)
+                                 device=dev, n_head=wmodel.text_heads(model))
     tokens = torch.full((b, spec.total), spec.eot, dtype=torch.long,
                         device=dev)
     tokens[:, :spec.sample_begin] = prompt_rows(prompt, b).to(dev)
@@ -721,7 +731,9 @@ def decode(model, tokenizer, mel: torch.Tensor,
     guard = ((kv_int8_guard or 0.0) + (kv_frames_guard or 0.0)
              if (kv_int8_guard is not None or kv_frames_guard is not None)
              else None)
-    loop_fn = _loop_for(dev)
+    # a tensor-parallel rank runs the eager loop (see loop_runner)
+    loop_fn = (_decode_loop if getattr(model, "tp_group", None) is not None
+               else _loop_for(dev))
 
     def loop(frames, int8, track):
         spec = LoopSpec(
@@ -820,7 +832,7 @@ def detect_language(model, tokenizer, mel: Optional[torch.Tensor] = None,
     b = xa.shape[0]
     cross_kv = wmodel.precompute_cross_kv(model, xa)
     cache = wmodel.init_kv_cache(model.dims, b, 1, dtype=model.dtype,
-                                 device=dev)
+                                 device=dev, n_head=wmodel.text_heads(model))
     sot = torch.full((b, 1), tokenizer.sot, dtype=torch.long, device=dev)
     logits, _ = wmodel.decode_step(model, sot, 0, cache, cross_kv)
     lang_logits = logits.index_select(1, torch.tensor(
@@ -900,9 +912,9 @@ def speculative_setup(model, draft, xa: torch.Tensor, xa_d: torch.Tensor,
     cross_t = wmodel.precompute_cross_kv(model, xa)
     cross_d = wmodel.precompute_cross_kv(draft, xa_d)
     cache_t = wmodel.init_kv_cache(model.dims, 1, buf, dtype=model.dtype,
-                                   device=dev)
+                                   device=dev, n_head=wmodel.text_heads(model))
     cache_d = wmodel.init_kv_cache(draft.dims, 1, buf, dtype=draft.dtype,
-                                   device=dev)
+                                   device=dev, n_head=wmodel.text_heads(draft))
     tokens = torch.full((1, buf), spec.eot, dtype=torch.long, device=dev)
     tokens[:, :spec.sample_begin] = prompt_rows(prompt, 1).to(dev)
     ns_prob = (torch.zeros(1, device=dev) if spec.no_speech is not None
@@ -1053,12 +1065,12 @@ def _speculative_loop(model, draft, xa: torch.Tensor, xa_d: torch.Tensor,
                       prompt: np.ndarray, suppress_mask: torch.Tensor,
                       blank_mask: torch.Tensor, spec: SpeculativeSpec):
     """The speculative loop from both models' encoder states, run by
-    :func:`runner_for` the device (a captured graph of rounds on a card,
-    :func:`run_eager` on the CPU). Returns (tokens (1, total), sum_lp (1,),
+    :func:`loop_runner` (a captured graph of rounds on a card, :func:`run_eager`
+    on the CPU). Returns (tokens (1, total), sum_lp (1,),
     ns_prob (1,), n_steps (1,), n_rounds (1,))."""
     st, kv = speculative_setup(model, draft, xa, xa_d, prompt, suppress_mask,
                                blank_mask, spec)
-    run = runner_for(xa.device)
+    run = loop_runner(model, xa.device)
     key = ("speculative", spec, id(draft), xa.shape[1], xa_d.shape[1],
            model.dtype, draft.dtype)
     # each round commits at least one token

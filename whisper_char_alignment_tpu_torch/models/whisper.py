@@ -33,6 +33,14 @@ Math parity notes (vs whisper.model and the JAX package):
   (:func:`cross_attn_mode`): the int8-product step (``mxu``), the kernel of
   ``ops/cross_attn_cuda.py`` (``pallas``), or dequantize-then-attend
   (``xla``); the prefill never takes the kernel.
+- :func:`quantize_encoder_int8` swaps the encoder's attention projections
+  and MLP for :class:`Int8Linear` layers: each activation row is quantized
+  to int8, multiplied by the int8 weights into int32 and scaled back
+  (``ops/int8_cuda.py``: two kernels around the library int8 product).
+- under tensor parallelism (``parallel/mesh.shard_params``) each attention
+  runs its rank's heads, and the row-split layers (:class:`SplitLinear`, a
+  row-split :class:`Int8Linear`) all-reduce their partial products over the
+  model group before adding the bias once.
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import ModelDims
+from ..ops import int8_cuda
 from ..ops.cross_attn_cuda import cross_attn_step_int8
 from ..ops.encoder_attn_cuda import encoder_self_attention
 from ..ops.qkpost_cuda import qk_postprocess
@@ -73,7 +82,10 @@ def sinusoids(length: int, channels: int,
 class MultiHeadAttention(nn.Module):
     def __init__(self, n_state: int, n_head: int, **factory):
         super().__init__()
+        # heads this rank runs: all of them, or its share under tensor
+        # parallelism; head_dim stays
         self.n_head = n_head
+        self.head_dim = n_state // n_head
         self.query = nn.Linear(n_state, n_state, **factory)
         self.key = nn.Linear(n_state, n_state, bias=False, **factory)
         self.value = nn.Linear(n_state, n_state, **factory)
@@ -125,9 +137,37 @@ class TextDecoder(nn.Module):
         self.ln = nn.LayerNorm(d, **factory)
 
 
+class Int8Linear(nn.Module):
+    """An encoder linear with per-output-channel int8 weights (JAX
+    ``quantize_encoder_int8``'s leaves): ``w8`` (out, in) int8 codes (JAX's
+    (in, out) ``w8`` transposed: ``w8.t()`` is the column-major operand
+    ``torch._int_mm`` takes), ``s`` (out,) float32 scales, and the float
+    bias. ``group`` is the model group of a row-split layer under tensor
+    parallelism (``parallel/mesh.py``), else None."""
+
+    def __init__(self, w8: torch.Tensor, s: torch.Tensor,
+                 bias: Optional[torch.Tensor]):
+        super().__init__()
+        self.out_features, self.in_features = w8.shape
+        self.register_buffer("w8", w8)
+        self.register_buffer("s", s)
+        self.bias = (None if bias is None
+                     else nn.Parameter(bias, requires_grad=False))
+        self.group = None
+
+
+class SplitLinear(nn.Linear):
+    """A float linear split on its input rows over a tensor-parallel model
+    group (``parallel/mesh.shard_params``): each rank's partial product is
+    all-reduced, then the bias added once."""
+    group = None
+
+
 class Whisper(nn.Module):
     """Whisper's parameter tree. Built with uninitialised weights: fill them
-    with :func:`init_params` or ``load_state_dict``."""
+    with :func:`init_params` or ``load_state_dict``. ``tp_group`` is the
+    model group of a tensor-parallel rank's copy (``parallel/mesh.py``),
+    else None."""
 
     def __init__(self, dims: ModelDims, device=None, dtype=None):
         super().__init__()
@@ -135,6 +175,7 @@ class Whisper(nn.Module):
         self.dims = dims
         self.encoder = AudioEncoder(dims, **factory)
         self.decoder = TextDecoder(dims, **factory)
+        self.tp_group = None
 
     @property
     def device(self) -> torch.device:
@@ -182,14 +223,54 @@ def cast_params(model: Whisper, dtype: torch.dtype,
                 device: Optional[torch.device] = None) -> Whisper:
     """The model in the compute dtype (and on ``device``): the same module
     when it already is, else a converted copy, so the caller's module is left
-    as it was."""
+    as it was. The int8 leaves of :func:`quantize_encoder_int8` keep their
+    types, as JAX ``cast_params`` keeps them: ``w8`` int8 and ``s`` float32
+    (``Module.to(dtype)`` casts every floating buffer, so ``s`` is put
+    back)."""
     device = model.device if device is None else torch.device(device)
     if model.dtype == dtype and model.device == device:
         return model
-    if model.device == device:
-        return copy.deepcopy(model).to(dtype=dtype)
-    out = Whisper(model.dims, device=device, dtype=dtype)
-    out.load_state_dict(model.state_dict())
+    out = copy.deepcopy(model).to(device=device, dtype=dtype)
+    for mod, src in zip(out.modules(), model.modules()):
+        if isinstance(mod, Int8Linear):
+            mod.s = src.s.to(device=device, dtype=torch.float32)
+    return out
+
+
+def encoder_is_int8(model: Whisper) -> bool:
+    return isinstance(model.encoder.blocks[0].attn.query, Int8Linear)
+
+
+def _quantize_linear(lin: nn.Linear) -> Int8Linear:
+    """Per-output-channel int8 codes of ``lin``'s weight, with the numpy
+    arithmetic of JAX ``models/whisper.py:170-181``: ``s = amax / 127`` a
+    float32 true division (not the reciprocal product of the activation
+    quantizer), 1 where amax is 0; ``w8 = clip(round(w / s), -127,
+    127)``."""
+    w = lin.weight.detach().float()
+    amax = w.abs().amax(dim=1, keepdim=True)
+    s = torch.where(amax == 0, torch.ones_like(amax), amax / 127.0)
+    w8 = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
+    bias = None if lin.bias is None else lin.bias.detach().clone()
+    return Int8Linear(w8.contiguous(), s[:, 0].contiguous(), bias)
+
+
+def quantize_encoder_int8(model: Whisper) -> Whisper:
+    """Opt-in int8 encoder (JAX ``quantize_encoder_int8``): a copy whose
+    encoder blocks' q/k/v/out projections and both MLP linears are
+    :class:`Int8Linear`; the convs, layer norms and the whole decoder stay
+    as they are. Idempotent: a quantized model is returned as it is. Not
+    parity-true (quantization perturbs the encoder states); the float
+    encoder stays the default."""
+    if encoder_is_int8(model):
+        return model
+    out = copy.deepcopy(model)
+    with torch.no_grad():
+        for blk in out.encoder.blocks:
+            for p in ("query", "key", "value", "out"):
+                setattr(blk.attn, p, _quantize_linear(getattr(blk.attn, p)))
+            for j in (0, 2):
+                blk.mlp[j] = _quantize_linear(blk.mlp[j])
     return out
 
 
@@ -212,8 +293,44 @@ def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
                         ln.bias.float(), 1e-5).to(x.dtype)
 
 
-def _linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+def _linear(lin: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    if isinstance(lin, Int8Linear):
+        return _linear_int8(lin, x)
+    if isinstance(lin, SplitLinear):
+        return _split_linear(lin, x)
     return F.linear(x, lin.weight, lin.bias)
+
+
+def _split_linear(lin: SplitLinear, x: torch.Tensor) -> torch.Tensor:
+    """A row-split float linear: the rank's partial product in float32, its
+    sum over the model group, then the compute dtype and the bias, once."""
+    part = F.linear(x.float(), lin.weight.float())
+    y = lin.group.all_reduce(part).to(x.dtype)
+    return y if lin.bias is None else y + lin.bias
+
+
+def _linear_int8(lin: Int8Linear, x: torch.Tensor) -> torch.Tensor:
+    """JAX ``_linear_int8`` as XLA compiles it: each row of x quantized to
+    int8 (``amax * f32(1/127)`` scales), the exact int32 product with
+    ``w8``, then ``(float(y) * xs) * s`` in the compute dtype ``+ b``
+    (``ops/int8_cuda.dequantize``: in float32 the last product and the bias
+    add are one fused multiply-add, as XLA contracts them). A row-split
+    layer takes its rows' max over the model group first, so its codes are
+    the slices of the whole rows', and sums the int32 partial products
+    (exact) before the epilogue: the result equals one rank's bit for
+    bit."""
+    shape = x.shape
+    x2 = x.reshape(-1, shape[-1])
+    amax = None
+    if lin.group is not None:
+        amax = lin.group.all_reduce(
+            x2.float().abs().amax(dim=-1, keepdim=True), op="max")
+    x8, xs = int8_cuda.quantize_rows(x2, amax)
+    y = int8_cuda.int_mm(x8, lin.w8)
+    if lin.group is not None:
+        y = lin.group.all_reduce(y)
+    out = int8_cuda.dequantize(y, xs, lin.s, lin.bias, x.dtype)
+    return out.reshape(*shape[:-1], out.shape[-1])
 
 
 def _mlp(blk: ResidualAttentionBlock, x: torch.Tensor) -> torch.Tensor:
@@ -247,7 +364,7 @@ def _qkv_attention(attn: MultiHeadAttention, x, xa, mask=None):
     """Self- (xa None) or cross-attention over ``xa``; returns (out, qk f32)
     where qk is the pre-softmax logits including the mask."""
     n_head = attn.n_head
-    scale = (x.shape[-1] // n_head) ** -0.25
+    scale = attn.head_dim ** -0.25
     q = _split_heads(_linear(attn.query, x), n_head) * scale
     src = x if xa is None else xa
     k = _split_heads(_linear(attn.key, src), n_head) * scale
@@ -265,7 +382,7 @@ def _cross_attention_kv(attn: MultiHeadAttention, x, ck, cv,
     compute dtype, then attend). The returned logits are None on the int8
     paths other than ``xla``."""
     n_head = attn.n_head
-    scale = (x.shape[-1] // n_head) ** -0.25
+    scale = attn.head_dim ** -0.25
     q = _split_heads(_linear(attn.query, x), n_head) * scale
     if isinstance(ck, tuple) and mode == "mxu":
         o, qk = _cross_attn_step_int8_mxu(q, ck, cv, scale, x.dtype), None
@@ -281,7 +398,7 @@ def _cross_attention_kv(attn: MultiHeadAttention, x, ck, cv,
 
 def _encoder_self_attention(attn: MultiHeadAttention, x, n_valid: int):
     n_head = attn.n_head
-    scale = (x.shape[-1] // n_head) ** -0.25
+    scale = attn.head_dim ** -0.25
     q = (_split_heads(_linear(attn.query, x), n_head) * scale).contiguous()
     k = (_split_heads(_linear(attn.key, x), n_head) * scale).contiguous()
     v = _split_heads(_linear(attn.value, x), n_head).contiguous()
@@ -376,34 +493,32 @@ def decode_text(model: Whisper, tokens: torch.Tensor, xa: Optional[torch.Tensor]
 # Incremental decoding (KV cache)
 # ---------------------------------------------------------------------------
 
+def text_heads(model: Whisper) -> int:
+    """Decoder heads this rank runs (all of them but under tensor
+    parallelism): the head axis of its caches and cross K/V."""
+    return model.decoder.blocks[0].attn.n_head
+
+
 def init_kv_cache(dims: ModelDims, batch: int, max_len: int,
-                  dtype: torch.dtype = torch.float32, device=None) -> Cache:
-    """Self-attention K/V cache, (L, B, H, hd, ctx) each, zero-filled."""
-    shape = (dims.n_text_layer, batch, dims.n_text_head, dims.n_text_head_dim,
-             max_len)
+                  dtype: torch.dtype = torch.float32, device=None,
+                  n_head: Optional[int] = None) -> Cache:
+    """Self-attention K/V cache, (L, B, H, hd, ctx) each, zero-filled; H is
+    ``n_head`` when given (a tensor-parallel rank's share,
+    :func:`text_heads`), else all the decoder's heads."""
+    shape = (dims.n_text_layer, batch, n_head or dims.n_text_head,
+             dims.n_text_head_dim, max_len)
     dev = resolve_device(device)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
-_RECIP_127 = float(np.float32(1.0 / 127.0))
-
-
-def _scale_of(amax: torch.Tensor) -> torch.Tensor:
-    """``amax / 127`` as the JAX package's compiled quantizers evaluate it
-    (XLA turns the division by a constant into a product with the float32
-    reciprocal), and 1.0 where amax is 0."""
-    return torch.where(amax == 0, torch.ones_like(amax),
-                       amax * _RECIP_127)
-
-
 def quantize_cross_kv(x: torch.Tensor):
     """int8 codes and float32 scales of (..., hd, F) K or V: one scale per
-    frame column over the head-dim axis (:func:`_scale_of` its amax); codes
-    ``clip(round(x / scale), -127, 127)``, a true division, round half to
-    even. Returns (codes int8 (..., hd, F), scales (..., 1, F))."""
+    frame column over the head-dim axis (``int8_cuda.scale_of`` its amax);
+    codes ``clip(round(x / scale), -127, 127)``, a true division, round
+    half to even. Returns (codes int8 (..., hd, F), scales (..., 1, F))."""
     xf = x.float()
-    scale = _scale_of(xf.abs().amax(dim=-2, keepdim=True))
+    scale = int8_cuda.scale_of(xf.abs().amax(dim=-2, keepdim=True))
     return torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8), scale
 
 
@@ -438,7 +553,7 @@ def _dequant(c, dtype: torch.dtype) -> torch.Tensor:
 
 def _int8_rowwise(x: torch.Tensor):
     """Quantize the trailing axis per row: (int8 codes, float32 scales)."""
-    scale = _scale_of(x.abs().amax(dim=-1, keepdim=True))
+    scale = int8_cuda.scale_of(x.abs().amax(dim=-1, keepdim=True))
     return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8), scale
 
 
@@ -509,7 +624,7 @@ def _cached_layers(model: Whisper, x, cache: Cache, cross_kv,
     for layer, blk in enumerate(model.decoder.blocks):
         attn = blk.attn
         n_head = attn.n_head
-        scale = (x.shape[-1] // n_head) ** -0.25
+        scale = attn.head_dim ** -0.25
         h = _layer_norm(blk.attn_ln, x)
         q = _split_heads(_linear(attn.query, h), n_head) * scale
         k_new = _split_heads(_linear(attn.key, h), n_head)

@@ -45,7 +45,7 @@ LAUNCHES: Dict[str, int] = {
     "encoder_attn": 0, "encoder_attn_kt": 0, "qkpost": 0, "qkpost_rank": 0,
     "dtw_trace": 0,
     "dtw_backtrace": 0, "cross_attn_int8": 0, "cross_attn": 0, "mel": 0,
-    "mel_clip": 0}
+    "mel_clip": 0, "int8_quant": 0, "int8_dequant": 0}
 
 _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -72,6 +72,10 @@ _SIGNATURES = {
                 _vp],
     # x, tile_max, B, per_item, n_tiles, stream
     "wca_mel_clip": [_vp, _vp, _i, _i, _i, _vp],
+    # x, amax (or null), codes, scales, M, K, is_bf16, stream
+    "wca_int8_quant": [_vp, _vp, _vp, _vp, _i, _i, _i, _vp],
+    # y, xs, s, bias (or null), out, M, N, is_bf16, stream
+    "wca_int8_dequant": [_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _vp],
 }
 
 _lock = threading.Lock()

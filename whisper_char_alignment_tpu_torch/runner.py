@@ -18,6 +18,13 @@ go through pinned memory without blocking. Results and their order do not
 depend on the depth. Each stage's time is recorded in ``timers``
 (``utils/profiling.StageTimers``: device seconds between CUDA events on a
 card, nothing synchronised); ``stage_seconds`` is its seconds by stage.
+
+With ``mesh=`` (``parallel/mesh.py``) the pipeline is one rank of a (data,
+model) mesh: every rank reads every batch, pads it to a multiple of the data
+size, runs its data index's rows (with its share of the heads under a model
+axis) and gathers the results back in input order, so every rank runs every
+collective, the last batch too. A model axis runs the decode loops eagerly
+(``decoding.loop_runner``).
 """
 
 from __future__ import annotations
@@ -37,10 +44,10 @@ from .audio.mel import wire_to_mel
 from .config import AlignConfig, get_alignment_heads
 from .data.dataset import Utterance, batch_iter
 from .models import decoding, whisper as wmodel
+from .parallel import mesh as mesh_lib
 from .text import retokenize
 from .utils.device import resolve_device
 from .utils.profiling import StageTimers
-from .utils.unported import not_ported
 
 
 @dataclasses.dataclass
@@ -57,10 +64,6 @@ class UttAlignment:
     scores: Optional[list] = None
     word_probabilities: Optional[List[float]] = None
     skipped: bool = False
-
-
-def _pad_to_multiple(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
 
 
 def _cross_kv_bytes(dims, batch: int, compute_dtype: torch.dtype) -> int:
@@ -113,36 +116,40 @@ def _utt_wire_i16(u: Utterance):
     return cached
 
 
-def _reject_unported(cfg: AlignConfig) -> None:
-    if cfg.encoder_int8:
-        raise not_ported("encoder_int8", "quantized")
-    if cfg.data_parallel > 1 or cfg.tensor_parallel > 1:
-        raise not_ported("data_parallel/tensor_parallel above 1", "parallel")
-
-
 class AlignmentPipeline:
     """End-to-end batched alignment with fixed-shape bucketing, on one GPU
-    (``device=None``) or on the CPU (``device="cpu"``)."""
+    (``device=None``), on the CPU (``device="cpu"``), or as one rank of a
+    ``mesh`` (on the mesh's device). ``cfg.data_parallel`` and
+    ``cfg.tensor_parallel`` are read by the CLIs, which build the mesh (as
+    in the JAX package)."""
 
     def __init__(self, model: wmodel.Whisper, tokenizer, cfg: AlignConfig,
                  device=None, compute_dtype=torch.float32,
-                 token_bucket: int = 32, mesh=None):
-        if mesh is not None:
-            raise not_ported("a device mesh", "parallel")
-        _reject_unported(cfg)
+                 token_bucket: int = 32, mesh: Optional[mesh_lib.Mesh] = None):
         if cfg.decode_frame_bucket_guarded and cfg.decode_frame_bucket <= 0:
             raise ValueError(
                 "decode_frame_bucket_guarded guards the frame-bucketed "
                 "decode: set decode_frame_bucket to the bucket multiple "
                 "(e.g. 128) alongside it")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = (mesh.device if mesh is not None
+                       else resolve_device(device))
         self.compute_dtype = compute_dtype
         self.dims = model.dims
         self.tokenizer = tokenizer
         self.cfg = cfg
         self.token_bucket = token_bucket
-        # the compute-dtype copy every stage uses; the caller's module stays
+        if cfg.encoder_int8:
+            # the int8 module tree routes the encoder's linears through the
+            # int8 kernels (JAX runner.py:242-249)
+            model = wmodel.quantize_encoder_int8(model)
+        # the compute-dtype copy every stage uses (int8 leaves kept); the
+        # caller's module stays; a model axis keeps this rank's slices
         self.model = wmodel.cast_params(model, self.compute_dtype, self.device)
+        if mesh is not None:
+            self.model = mesh_lib.shard_params(self.model, mesh)
+        # rows of a full batch on this rank (its data index's share)
+        self.rows = self._pad_batch(cfg.batch_size) // mesh_lib.data_size(mesh)
         self.sot_len = len(tokenizer.sot_sequence)
         self.alignment_heads = get_alignment_heads(cfg.model, self.dims)
         if cfg.default_whisper_timing and not all(
@@ -190,18 +197,35 @@ class AlignmentPipeline:
         """Seconds by stage name (``timers.totals``)."""
         return self.timers.totals
 
+    def _pad_batch(self, n: int) -> int:
+        """Rows of a batch of ``n``: a full batch, rounded up to a multiple
+        of the mesh's data size (JAX ``runner.py:311-320``; a model axis
+        shards weights, not the batch)."""
+        return mesh_lib.pad_to_multiple(max(self.cfg.batch_size, n),
+                                        mesh_lib.data_size(self.mesh))
+
+    def _local(self, utts: Sequence[Utterance]):
+        """This rank's utterances of a batch and its padded row count."""
+        b_pad = self._pad_batch(len(utts))
+        return (mesh_lib.shard_rows(utts, b_pad, self.mesh),
+                b_pad // mesh_lib.data_size(self.mesh))
+
     # -- stages ---------------------------------------------------------------
 
-    def _prep_wire(self, utts: Sequence[Utterance]) -> np.ndarray:
-        """A batch's wire buffer: (batch_size, wire_samples) int16 when every
-        utterance is exactly int16/32768-representable, else float32. Only
-        the batch's true audio length is sent, bucketed to 5 s steps; the
-        rest of the window is zero-padded on the device."""
-        b_pad = max(self.cfg.batch_size, len(utts))
+    def _prep_wire(self, utts: Sequence[Utterance]) -> Optional[np.ndarray]:
+        """This rank's wire buffer of a batch: (rows, wire_samples) int16
+        when every utterance is exactly int16/32768-representable, else
+        float32 (None when the rank has no utterance of it). Only the
+        batch's true audio length is sent, bucketed to 5 s steps; the rest
+        of the window is zero-padded on the device."""
+        utts, b_pad = self._local(utts)
+        if not utts:
+            return None
         n_samples = 2 * self.dims.n_audio_ctx * constants.HOP_LENGTH
         sample_bucket = 5 * constants.SAMPLE_RATE
         max_live = max(min(u.audio.size, n_samples) for u in utts)
-        wire_samples = min(n_samples, _pad_to_multiple(max_live, sample_bucket))
+        wire_samples = min(n_samples,
+                           mesh_lib.pad_to_multiple(max_live, sample_bucket))
         rows_i16 = [_utt_wire_i16(u) for u in utts]
         use_i16 = all(r is not None for r in rows_i16)
         wire = np.zeros((b_pad, wire_samples),
@@ -225,11 +249,25 @@ class AlignmentPipeline:
         """Stage 1: upload the wire, queue mel and encoder, decode. The
         transcripts arrive through the returned ``DecodeFuture``. ``wire`` is
         the batch's buffer from :meth:`_prep_wire` (``run_dataset`` builds it
-        in the background); None builds it here."""
-        n = len(utts)
+        in the background); None builds it here. Under a mesh the returned
+        ``utts`` are this rank's (none, past the batch's real rows)."""
+        cfg = self.cfg
+        kv_frames = None
+        if cfg.decode_frame_bucket > 0:
+            # one bucket for the whole batch, as on one device
+            max_fl = max(max(u.duration // constants.AUDIO_SAMPLES_PER_TOKEN, 1)
+                         for u in utts)
+            kv_frames = min(self.dims.n_audio_ctx, mesh_lib.pad_to_multiple(
+                int(max_fl), cfg.decode_frame_bucket))
+        local = self._local(utts)[0]
+        n = len(local)
+        if not local:
+            return dict(utts=local, future=None, mel=None, xa=None,
+                        cross_kv=None)
         if wire is None:
             with self.timers.stage("wire prep", n):
                 wire = self._prep_wire(utts)
+        utts = local
         n_samples = 2 * self.dims.n_audio_ctx * constants.HOP_LENGTH
         with self.timers.stage("mel", n):
             mel = wire_to_mel(self._upload(wire), self.dims.n_mels,
@@ -239,22 +277,16 @@ class AlignmentPipeline:
         with self.timers.stage("encoder", n):
             xa = wmodel.encode_audio(self.model, mel,
                                      device=self.device.type)
-        cfg = self.cfg
-        kv_frames = None
-        if cfg.decode_frame_bucket > 0:
-            max_fl = max(max(u.duration // constants.AUDIO_SAMPLES_PER_TOKEN, 1)
-                         for u in utts)
-            kv_frames = min(self.dims.n_audio_ctx,
-                            _pad_to_multiple(int(max_fl),
-                                             cfg.decode_frame_bucket))
         kv_int8 = cfg.decode_kv_int8 or cfg.decode_kv_int8_guarded
         # cross-K/V reuse: only when the decode loop's K/V are the capture
         # pass's own (full frames, not quantized), and when they fit the
         # budget (WCA_REUSE_KV_MAX_BYTES, default 8e9 bytes) divided among
         # the stacks run_dataset keeps alive: pipeline_depth batches with
-        # their decode in flight and one in the capture (JAX runner.py:390)
+        # their decode in flight and one in the capture (JAX runner.py:390),
+        # and not under a mesh (JAX runner.py:398-405)
         n_live = max(1, cfg.pipeline_depth) + 1
         reuse_kv = (cfg.reuse_cross_kv and kv_frames is None and not kv_int8
+                    and self.mesh is None
                     and _cross_kv_bytes(self.dims, b_pad, self.compute_dtype)
                     * n_live
                     <= int(float(os.environ.get("WCA_REUSE_KV_MAX_BYTES",
@@ -274,10 +306,13 @@ class AlignmentPipeline:
                     cross_kv=cross_kv if reuse_kv else None)
 
     def transcribe_batch(self, utts: Sequence[Utterance]):
-        """Synchronous wrapper: (transcripts, mel batch, encoder states)."""
+        """Synchronous wrapper: (transcripts, mel batch, encoder states);
+        under a mesh the transcripts of the whole batch, the mel and states
+        of this rank's rows."""
         p = self._dispatch_transcribe(utts)
-        results = p["future"].result()
-        return [r.text for r in results[:len(utts)]], p["mel"], p["xa"]
+        texts = ([] if p["future"] is None else
+                 [r.text for r in p["future"].result()[:len(p["utts"])]])
+        return mesh_lib.gather_rows(texts, self.mesh), p["mel"], p["xa"]
 
     def align_batch(self, utts: Sequence[Utterance],
                     return_matrix: bool = False) -> List[UttAlignment]:
@@ -293,15 +328,17 @@ class AlignmentPipeline:
         tok = self.tokenizer
         utts = tp["utts"]
         xa = tp["xa"]
+        margins = []
         if self.transcribe_override is not None:
             transcripts = self.transcribe_override(utts)
+        elif not utts:
+            transcripts = []
         else:
             with self.timers.stage("transcripts sync", len(utts)):
                 results = tp["future"].result()
             transcripts = [r.text for r in results[:len(utts)]]
-            self.min_margins.extend(float(r.min_margin)
-                                    for r in results[:len(utts)]
-                                    if np.isfinite(r.min_margin))
+            margins = [float(r.min_margin) for r in results[:len(utts)]
+                       if np.isfinite(r.min_margin)]
 
         with self.timers.stage("retokenize", len(utts)):
             prepared = []
@@ -327,10 +364,10 @@ class AlignmentPipeline:
         live = [p for p in prepared if not p[6]]
         outputs = None
         if live:
-            b_pad = max(self.cfg.batch_size, len(live))
+            b_pad = max(self.rows, len(live))
             t_max = max(len(p[4]) for p in live)
             t_bucket = min(self.dims.n_text_ctx,
-                           _pad_to_multiple(t_max, self.token_bucket))
+                           mesh_lib.pad_to_multiple(t_max, self.token_bucket))
             tokens_arr, token_len, frame_len, xa_idx = pack_fixed_batch(
                 [(p[0], p[4], p[5]) for p in live], utts, b_pad, t_bucket,
                 tok.eot, self.dims.n_audio_ctx)
@@ -379,11 +416,13 @@ class AlignmentPipeline:
             outputs = decoding.DecodeFuture(
                 list(named.values()),
                 lambda *arrays: dict(zip(named, arrays)))
-        return dict(utts=utts, prepared=prepared, live=live, outputs=outputs)
+        return dict(utts=utts, prepared=prepared, live=live, outputs=outputs,
+                    margins=margins)
 
     def _collect_align(self, ap: dict) -> List[UttAlignment]:
         """Stage 3: wait for the alignment's outputs and turn them into word
-        times on the host."""
+        times on the host; under a mesh, gather every data index's in input
+        order."""
         cfg = self.cfg
         tok = self.tokenizer
         prepared = ap["prepared"]
@@ -444,7 +483,8 @@ class AlignmentPipeline:
                 scores=(None if sel is None
                         else (sel[0][live_i], sel[1][live_i])),
                 word_probabilities=word_probs))
-        return out
+        self.min_margins.extend(mesh_lib.gather_rows(ap["margins"], self.mesh))
+        return mesh_lib.gather_rows(out, self.mesh)
 
     def run_dataset(self, dataset, progress: bool = True):
         """Iterate a dataset in batches; yields UttAlignment per utterance,

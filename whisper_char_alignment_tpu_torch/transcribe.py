@@ -114,7 +114,7 @@ def _window_word_timings(model, tokenizer, mel_segment: torch.Tensor,
     backtrace kernels). Returns [{word, tokens, start, end, probability}]
     with window-relative times, or None when unalignable."""
     from .align import timing
-    from .runner import _pad_to_multiple
+    from .parallel.mesh import pad_to_multiple
 
     dims = model.dims
     sot_len = len(sot_seq)
@@ -122,7 +122,7 @@ def _window_word_timings(model, tokenizer, mel_segment: torch.Tensor,
     if len(tokens) > dims.n_text_ctx or not text_tokens:
         return None
     # eot-pad to a 32-multiple token bucket, masked by token_len
-    t_bucket = min(dims.n_text_ctx, _pad_to_multiple(len(tokens), 32))
+    t_bucket = min(dims.n_text_ctx, pad_to_multiple(len(tokens), 32))
     arr = np.full((1, t_bucket), tokenizer.eot, np.int32)
     arr[0, :len(tokens)] = tokens
     dev = mel_segment.device
