@@ -56,7 +56,18 @@ Phases (any failure exits non-zero and prints no final line):
    (its per-head DTW in 3 launches of 1024 rows, timed), each with exact
    launch counts and jump frames equal to the NumPy DTW oracle; and
    ``infer_ali --test_model`` on ``sample/`` on the card and on the CPU,
-   with equal words and boundaries. The DTW kernels are then held and timed
+   with equal words and boundaries. After the CLI phase, the checkpoint
+   path: the medium bf16 model written by ``convert.save_openai_pt`` and
+   the toy ranks as a ``multilingual.tiktoken`` file, read back by
+   ``infer_ali --checkpoint --tokenizer_dir`` (the real loader) with the
+   width-17 recipe, which must give the in-memory run's tokenizer ids,
+   launch counts, words, boundaries and P/R/F1; ``whisper.forward`` on one
+   batch of 8 (24 encoder kernel launches, no QK post-process) and
+   ``qk_to_attention`` over its 24 layers (24 launches), bit-equal to the
+   capture's in-layer post-process; both native host libraries
+   (``cpp/wavio.cc``, ``cpp/bpe.cc``) built by g++ and loaded, equal to the
+   Python paths on the corpus; and the default run's ``utils/flops``
+   MFU roll-up, logged. The DTW kernels are then held and timed
    on the inputs the default main path gave them (its own shape).
    The decode runs as a replayed CUDA graph (``models/decode_graph.py``):
    the steps the main path ran are read from the graph runner's replay
@@ -1162,6 +1173,8 @@ def drive(label: str, pipe, dataset, expected, card: str):
 
     seen = new_seen()
     pipe.timers.reset()
+    pipe.decode_shapes.clear()
+    pipe.capture_shapes.clear()
     _lib.reset_launches()
     torch.cuda.synchronize()
     with spying(seen):
@@ -1180,6 +1193,8 @@ def drive(label: str, pipe, dataset, expected, card: str):
     check_alignments(results, dataset, len(dataset))
     stages = {k: round(v, 4) for k, v in pipe.stage_seconds.items()}
     seen["stages"] = stages
+    seen.update(wall=wall, decode_shapes=list(pipe.decode_shapes),
+                capture_shapes=list(pipe.capture_shapes))
     log(f"[{label}] main path on {card}: {len(dataset)} utterances aligned in"
         f" {wall:.3f} s -> {len(dataset) / wall:.3f} utts/s; stage seconds "
         f"{json.dumps(stages)}")
@@ -1832,7 +1847,12 @@ def cli_base_args(scp: str) -> list:
             "--profile"]
 
 
-def cli_phase(model, tok, scp: str, n_utts: int, card: str) -> dict:
+# the CLI's README recipe at median width 17 (the QK post-process's network)
+RECIPE_W17 = ["--medfilt_width", "17", "--aggr", "topk", "--topk", "10",
+              "--save_prediction"]
+
+
+def cli_phase(model, tok, scp: str, n_utts: int, card: str):
     """``infer_ali`` at Whisper-medium width through ``cli.infer_ali.main``,
     with the model loader replaced by the smoke's medium model, twice: the
     README recipe at median width 17 (the network) with
@@ -1840,7 +1860,8 @@ def cli_phase(model, tok, scp: str, n_utts: int, card: str) -> dict:
     (rank selection). Each run's launch counts are set to 0 just before it
     and must be exact after it; every batch's jump frames equal the NumPy
     DTW oracle; ``eval_ali`` on the written pkl gives the CLI's own
-    precision, recall and F1. Returns each run's counts."""
+    precision, recall and F1. Returns each run's counts, and the width-17
+    run's metrics and pkl records."""
     import numpy as np
     import torch
 
@@ -1849,9 +1870,7 @@ def cli_phase(model, tok, scp: str, n_utts: int, card: str) -> dict:
     from whisper_char_alignment_tpu_torch.ops import _lib
 
     n_batches = -(-n_utts // BATCH)
-    runs = (("recipe w=17", "qkpost", ["--medfilt_width", "17", "--aggr",
-                                       "topk", "--topk", "10",
-                                       "--save_prediction"]),
+    runs = (("recipe w=17", "qkpost", RECIPE_W17),
             ("default timing w=33", "qkpost_rank",
              ["--default_whisper_timing", "--medfilt_width", "33"]))
     made, pipeline = [], infer_ali.AlignmentPipeline
@@ -1911,8 +1930,240 @@ def cli_phase(model, tok, scp: str, n_utts: int, card: str) -> dict:
                       f"{metrics}")
                 log(f"[cli {label}] eval_ali on the pkl: {rescored}, the "
                     f"CLI's own precision, recall and F1")
+                recipe = dict(metrics=metrics, records=records)
             out[qk_counter] = counts
-    return out
+    return out, recipe
+
+
+def checkpoint_phase(model, tok, dataset, scp: str, recipe: dict,
+                     default_seen: dict, card: str) -> None:
+    """The rest of the JAX package's surface on the card, at Whisper-medium
+    width:
+
+    (a) the smoke's bf16 model written by ``convert.save_openai_pt`` and the
+    smoke tokenizer's ranks as a ``multilingual.tiktoken`` file, then
+    ``infer_ali --checkpoint --tokenizer_dir`` on them with
+    :data:`RECIPE_W17`, the real loader unpatched (a pass-through times
+    it): the tokenizer it built gives the smoke's ids, the launch counts are
+    exact, the jump frames equal the NumPy DTW oracle, and words,
+    boundaries and P/R/F1 equal the in-memory run of :func:`cli_phase`
+    (bf16 read into float32 and cast back to bf16 is exact);
+    (b) ``whisper.forward`` on one batch of 8: 24 launches of the encoder
+    kernel and none of the QK post-process; ``qk_to_attention`` over its 24
+    layers: 24 of the post-process, equal bit for bit to ``decode_text``'s
+    in-layer post-process at width 3 on the same tokens and states;
+    (c) both native host libraries built by g++ and loaded; the corpus's
+    WAVs decode natively equal to the NumPy parser and its transcripts BPE
+    natively equal to the pure-Python merge;
+    (d) the default main-path run's ``mfu_summary`` (``utils/flops``),
+    logged only."""
+    import base64
+
+    import numpy as np
+    import torch
+
+    from whisper_char_alignment_tpu_torch.audio import _wavio_native, wav
+    from whisper_char_alignment_tpu_torch.audio.mel import (
+        log_mel_spectrogram, pad_or_trim)
+    from whisper_char_alignment_tpu_torch.cli import common, infer_ali
+    from whisper_char_alignment_tpu_torch.models import convert
+    from whisper_char_alignment_tpu_torch.models import whisper as wm
+    from whisper_char_alignment_tpu_torch.ops import _lib
+    from whisper_char_alignment_tpu_torch.text import bpe, retokenize
+    from whisper_char_alignment_tpu_torch.utils import flops, native
+
+    t_phase = time.perf_counter()
+    dims = model.dims
+    n_utts = len(dataset)
+    n_batches = -(-n_utts // BATCH)
+    # (a) the --checkpoint path
+    loads, made = [], []
+    real_load, pipeline = (common.load_model_and_tokenizer,
+                           infer_ali.AlignmentPipeline)
+
+    def timed_load(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_load(*args, **kwargs)
+        torch.cuda.synchronize()
+        loads.append((time.perf_counter() - t0, out))
+        return out
+
+    def keep_pipeline(*args, **kwargs):
+        made.append(pipeline(*args, **kwargs))
+        return made[-1]
+
+    with tempfile.TemporaryDirectory(prefix="smoke_ckpt_",
+                                     dir=os.path.join(HERE, "build")) as d:
+        path = os.path.join(d, "medium.pt")
+        t0 = time.perf_counter()
+        convert.save_openai_pt(path, model)
+        write_s = time.perf_counter() - t0
+        with open(os.path.join(d, "multilingual.tiktoken"), "wb") as f:
+            for k, v in tok.bpe.ranks.items():
+                f.write(base64.b64encode(k) + b" " + str(v).encode() + b"\n")
+        calls = []
+        _lib.reset_launches()
+        torch.cuda.synchronize()
+        with patched(common, load_model_and_tokenizer=timed_load), \
+                patched(infer_ali, AlignmentPipeline=keep_pipeline), \
+                dtw_calls(calls):
+            t0 = time.perf_counter()
+            metrics = infer_ali.main(
+                cli_base_args(scp) + RECIPE_W17
+                + ["--checkpoint", path, "--tokenizer_dir", d,
+                   "--output_dir", os.path.join(d, "out")])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = _lib.launch_counts()
+        size = os.path.getsize(path)
+        (pkl,) = glob.glob(os.path.join(d, "out", "*-predictions.pkl"))
+        with open(pkl, "rb") as f:
+            records = pickle.load(f)
+    (load_s, (loaded_model, cli_tok)), = loads
+    check(made[-1].tokenizer is cli_tok, "[checkpoint] the CLI's tokenizer")
+    check(loaded_model.dtype == torch.float32
+          and made[-1].model.dtype == torch.bfloat16,
+          f"[checkpoint] loaded {loaded_model.dtype}, ran "
+          f"{made[-1].model.dtype}")
+    specials = ("eot", "sot", "translate", "transcribe", "sot_lm",
+                "sot_prev", "no_speech", "no_timestamps", "timestamp_begin",
+                "n_vocab", "sot_sequence", "all_language_tokens",
+                "non_speech_tokens")
+    texts = [dataset[i].text for i in range(n_utts)]
+    check(all(getattr(cli_tok, a) == getattr(tok, a) for a in specials)
+          and cli_tok.bpe.ranks == tok.bpe.ranks
+          and all(cli_tok.encode(" " + t) == tok.encode(" " + t)
+                  and retokenize.encode(t, cli_tok, "char")
+                  == retokenize.encode(t, tok, "char") for t in texts),
+          "[checkpoint] the CLI's tokenizer gives other ids than the "
+          "smoke's")
+    expect = dict.fromkeys(counts, 0)
+    expect.update(encoder_attn=dims.n_audio_layer * n_batches,
+                  qkpost=dims.n_text_layer * n_batches,
+                  dtw_trace=n_batches, dtw_backtrace=n_batches)
+    log(f"[checkpoint] launch counts: {counts} (expected {expect})")
+    check(counts == expect, "[checkpoint] launch counts differ from the "
+          "path's")
+    held = sum(hold_jump_frames(c, range(c[0].shape[0]),
+                                f"[checkpoint] batch {i}")
+               for i, c in enumerate(calls))
+    check(len(calls) == n_batches and held == n_utts,
+          f"[checkpoint] {len(calls)} DTWs, {held} rows held")
+    check(metrics == recipe["metrics"],
+          f"[checkpoint] metrics {metrics} != the in-memory run's "
+          f"{recipe['metrics']}")
+    want = recipe["records"]
+    check(sorted(records) == sorted(want) and all(
+        records[i]["predwords"] == want[i]["predwords"]
+        and np.array_equal(records[i]["starts_hat"], want[i]["starts_hat"])
+        and np.array_equal(records[i]["ends_hat"], want[i]["ends_hat"])
+        for i in want), "[checkpoint] words or boundaries differ from the "
+          "in-memory run's")
+    log(f"[checkpoint] on {card}: medium bf16 .pt of {size / 1e9:.3f} GB "
+        f"written in {write_s:.2f} s, read onto the card (float32) in "
+        f"{load_s:.2f} s by the CLI's loader; infer_ali --checkpoint "
+        f"{wall:.2f} s, model load included; the tokenizer from "
+        f"--tokenizer_dir gives the smoke's ids; metrics {metrics} and the "
+        f"words and boundaries of all {n_utts} utterances equal the "
+        f"in-memory run's; jump frames equal the NumPy DTW oracle")
+    del loads, made, loaded_model
+
+    # (b) forward and qk_to_attention
+    dev = model.device
+    batch = [dataset[i] for i in range(BATCH)]
+    audio = np.stack([pad_or_trim(u.audio) for u in batch])
+    mel = log_mel_spectrogram(torch.from_numpy(audio).to(dev))
+    rows = [[*tok.sot_sequence, tok.no_timestamps,
+             *retokenize.encode(retokenize.remove_punctuation(u.text), tok,
+                                "char"), tok.eot] for u in batch]
+    t_max = max(len(r) for r in rows)
+    tokens = torch.tensor([r + [tok.eot] * (t_max - len(r)) for r in rows],
+                          device=dev)
+    token_len = torch.tensor([len(r) for r in rows], dtype=torch.int32,
+                             device=dev)
+    frame_len = torch.tensor([u.duration // 320 for u in batch],
+                             dtype=torch.int32, device=dev)
+    _lib.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, qk = wm.forward(model, mel, tokens, device=dev.type)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    fwd_counts = _lib.launch_counts()
+    check(fwd_counts == dict(dict.fromkeys(fwd_counts, 0),
+                             encoder_attn=dims.n_audio_layer),
+          f"[forward] launch counts {fwd_counts}")
+    check(tuple(logits.shape) == (BATCH, t_max, dims.n_vocab)
+          and tuple(qk.shape) == (dims.n_text_layer, BATCH, dims.n_text_head,
+                                  t_max, dims.n_audio_ctx)
+          and logits.dtype == qk.dtype == torch.float32
+          and bool(torch.isfinite(logits).all() and torch.isfinite(qk).all()),
+          "[forward] logits or QK of the wrong shape, type or not finite")
+    _lib.reset_launches()
+    attn = torch.stack([wm.qk_to_attention(qk[i], frame_len, token_len, 3,
+                                           1.0)
+                        for i in range(dims.n_text_layer)])
+    qk_counts = _lib.launch_counts()
+    check(qk_counts == dict(dict.fromkeys(qk_counts, 0),
+                            qkpost=dims.n_text_layer),
+          f"[forward] qk_to_attention launch counts {qk_counts}")
+    xa = wm.encode_audio(model, mel, device=dev.type)
+    _, capture = wm.decode_text(model, tokens, xa, medfilt_width=3,
+                                frame_len=frame_len, token_len=token_len,
+                                return_logits=False, device=dev.type)
+    check(torch.equal(attn, capture), "[forward] qk_to_attention of forward's"
+          " QK differs from decode_text's in-layer post-process")
+    log(f"[forward] on {card}: forward of {BATCH} x {t_max} tokens in "
+        f"{fwd_s:.3f} s with {fwd_counts['encoder_attn']} encoder kernel "
+        f"launches and no QK post-process; qk_to_attention over its "
+        f"{dims.n_text_layer} layers ({qk_counts['qkpost']} launches) equals "
+        f"decode_text's in-layer post-process bit for bit")
+    del logits, qk, attn, capture, xa
+
+    # (c) the native host hooks
+    built = native.loaded()
+    check(set(built) >= {"wavio.cc", "bpe.cc"},
+          f"[native] loaded {sorted(built)}: a library did not build")
+    decoder = _wavio_native.get()
+    check(decoder is not None and tok.bpe._get_native() is not None,
+          "[native] a native path is off")
+    for _, wav_path in dataset.entries:
+        got, rate = decoder.load(wav_path)
+        with open(wav_path, "rb") as f:
+            want_audio, want_rate = wav._parse_wav(f.read())
+        check(rate == want_rate and np.array_equal(got, want_audio),
+              f"[native] {wav_path} decodes otherwise than the NumPy parser")
+    slow = bpe.ByteBPE(tok.bpe.ranks)
+    slow._native_tried = True  # the pure-Python merge
+    for t in texts:
+        check(tok.bpe.encode_ordinary(t) == slow.encode_ordinary(t)
+              and tok.bpe.encode_ordinary(" " + t)
+              == slow.encode_ordinary(" " + t),
+              f"[native] BPE of {t!r} differs from the pure-Python merge")
+    log(f"[native] g++ build seconds {json.dumps(built)} (None: a library "
+        f"newer than its source reused) in {native.BUILD_DIR}; {n_utts} "
+        f"WAVs and transcripts equal to the Python paths")
+
+    # (d) the default main-path run's FLOP roll-up, logged only
+    total = dict(mel=0, encoder=0, decode=0, capture=0)
+    for b_pad, _, kv_frames in default_seen["decode_shapes"]:
+        total["mel"] += flops.mel_flops(dims) * b_pad
+        total["encoder"] += flops.encoder_flops(dims) * b_pad
+        total["decode"] += flops.decode_flops(
+            dims, prompt_len=len(tok.sot_sequence), steps=DECODE_LEN,
+            kv_frames=kv_frames) * b_pad
+    for t_bucket, b_pad, _, reused in default_seen["capture_shapes"]:
+        total["capture"] += flops.capture_flops(
+            dims, t_tokens=t_bucket, reuse_cross_kv=reused) * b_pad
+    rate = n_utts / default_seen["wall"]
+    summary = flops.mfu_summary(sum(total.values()) / n_utts, rate,
+                                flops.device_peak_tflops())
+    log(f"[mfu] default main path on {card}: {json.dumps(summary)} at "
+        f"{rate:.3f} utts/s; GFLOP per utterance by stage "
+        f"{json.dumps({k: round(v / n_utts / 1e9, 2) for k, v in total.items()})}"
+        f" (matmul FLOPs at the padded shapes; logged, not a claim)")
+    log(f"[checkpoint] phase done in {time.perf_counter() - t_phase:.1f} s")
 
 
 def probe_phase(model, tok, card: str) -> dict:
@@ -2787,7 +3038,8 @@ def main_path_phase(card: str):
                   f"[{label}] the capture pass did not recompute the K/V")
         modes_phase(model, tok, dataset, card)
         speculative_phase(model, tok, dataset, card)
-        cli_counts = cli_phase(model, tok, scp, len(dataset), card)
+        cli_counts, recipe = cli_phase(model, tok, scp, len(dataset), card)
+        checkpoint_phase(model, tok, dataset, scp, recipe, seen, card)
     cli_counts["probe"] = probe_phase(model, tok, card)
     log(f"tiny model CLI, card vs CPU: {tiny_cli_phase()}")
     long_form_phases(model, tok, card)

@@ -681,3 +681,43 @@ def test_int8_encoder_on_the_card(cuda, dtype):
         mp.setattr(int8_cuda, "dequantize", int8_cuda.dequantize_plain)
         want = tw.encode_audio(q, mel)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_and_qk_to_attention_on_the_card(cuda, dtype):
+    """``forward`` launches the encoder kernel once a layer and the QK
+    post-process never; ``qk_to_attention`` of its raw QK launches the
+    post-process once a layer, equal to its plain version on the same QK
+    within 1e-6, and equal, bit for bit, to ``decode_text``'s in-layer
+    post-process on the same tokens and encoder states."""
+    from whisper_char_alignment_tpu_torch.config import tiny_test_dims
+
+    dims = tiny_test_dims(n_vocab=64, n_audio_ctx=64, n_text_ctx=16,
+                          state=64, head=2, layers=3)
+    model = tw.cast_params(
+        tw.init_params(tw.Whisper(dims, device="cpu"),
+                       torch.Generator().manual_seed(0)), dtype, cuda)
+    gen = torch.Generator().manual_seed(1)
+    mel = torch.randn(2, dims.n_mels, 2 * dims.n_audio_ctx,
+                      generator=gen).to(cuda)
+    tokens = torch.randint(0, dims.n_vocab, (2, 9), generator=gen).to(cuda)
+    frame_len = torch.tensor([64, 21], dtype=torch.int32, device=cuda)
+    token_len = torch.tensor([9, 5], dtype=torch.int32, device=cuda)
+    _lib.reset_launches()
+    logits, qk = tw.forward(model, mel, tokens)
+    counts = _lib.launch_counts()
+    assert counts["encoder_attn"] == dims.n_audio_layer
+    assert sum(counts.values()) == dims.n_audio_layer
+    assert logits.dtype == qk.dtype == torch.float32
+    attn = [tw.qk_to_attention(qk[i], frame_len, token_len, 7, 1.3)
+            for i in range(dims.n_text_layer)]
+    assert _lib.launch_counts()["qkpost"] == dims.n_text_layer
+    for i, a in enumerate(attn):
+        want = qkpost_cuda.qk_postprocess_plain(qk[i], frame_len, token_len,
+                                                7, 1.3)
+        assert (a - want).abs().max().item() <= 1e-6
+    xa = tw.encode_audio(model, mel)
+    _, stack = tw.decode_text(model, tokens, xa, medfilt_width=7,
+                              frame_len=frame_len, token_len=token_len,
+                              qk_scale=1.3, return_logits=False)
+    assert torch.equal(stack, torch.stack(attn))

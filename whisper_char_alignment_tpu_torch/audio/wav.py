@@ -1,13 +1,14 @@
 """Host-side WAV decode.
 
 Copy of ``whisper_char_alignment_tpu/audio/wav.py`` for the PyTorch port, which
-imports nothing of the JAX package; only imports changed. The optional native
-decoder is dropped: the NumPy parser is the only path.
+imports nothing of the JAX package; only imports changed.
 
 Replaces the reference's ``torchaudio.load`` (reference: dataset.py:3, 31, 104;
 README.md:99 — only ever used on 16 kHz PCM WAV files). A minimal RIFF/WAVE parser in
 NumPy covering PCM 8/16/24/32-bit and IEEE float32/64, returning float32 in [-1, 1)
-with shape (channels, samples) to match torchaudio's convention.
+with shape (channels, samples) to match torchaudio's convention. A C++ fast path
+(``cpp/wavio.cc``) is loaded when built; the NumPy path is the always-available
+fallback — WAV decode is host work either way.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ from __future__ import annotations
 import struct
 
 import numpy as np
+
+from . import _wavio_native  # C++ accelerated decoder (optional)
 
 
 def _parse_wav(data: bytes):
@@ -77,6 +80,12 @@ def _parse_wav(data: bytes):
 
 def load(path: str):
     """Decode a WAV file -> (float32 array (channels, samples), sample_rate)."""
+    native = _wavio_native.get()
+    if native is not None:
+        try:
+            return native.load(path)
+        except Exception:
+            pass  # fall back to the NumPy parser on any native-path failure
     with open(path, "rb") as f:
         return _parse_wav(f.read())
 

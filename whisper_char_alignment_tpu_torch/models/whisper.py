@@ -433,6 +433,24 @@ def _logits(model: Whisper, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x.float(), model.decoder.token_embedding.weight.float())
 
 
+def qk_to_attention(qk: torch.Tensor, frame_len: torch.Tensor,
+                    token_len: torch.Tensor, medfilt_width: int,
+                    qk_scale: float,
+                    attn_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Raw cross-attention logits (B, H, T, F) -> alignment attention maps
+    (JAX ``qk_to_attention``): the QK post-process of
+    ``ops/qkpost_cuda.py`` (median filter on the logits, x ``qk_scale``,
+    frames >= frame_len masked, f32 softmax, rows >= token_len zeroed;
+    the kernel on a card, its plain version on the CPU), cast to
+    ``attn_dtype``."""
+    dev = qk.device
+    attn = qk_postprocess(qk.float().contiguous(),
+                          frame_len.to(device=dev, dtype=torch.int32),
+                          token_len.to(device=dev, dtype=torch.int32),
+                          medfilt_width, qk_scale)
+    return attn.to(attn_dtype)
+
+
 @torch.no_grad()
 def decode_text(model: Whisper, tokens: torch.Tensor, xa: Optional[torch.Tensor],
                 return_qk: bool = True,
@@ -479,14 +497,24 @@ def decode_text(model: Whisper, tokens: torch.Tensor, xa: Optional[torch.Tensor]
         x = x + c
         if return_qk:
             if medfilt_width is not None:
-                qk = qk_postprocess(qk.contiguous(), frame_len, token_len,
-                                    medfilt_width, qk_scale)
+                qk = qk_to_attention(qk, frame_len, token_len,
+                                     medfilt_width, qk_scale)
             qks.append(qk)
         x = x + _mlp(blk, x)
     qk_stack = torch.stack(qks) if return_qk else None
     if not return_logits:
         return None, qk_stack
     return _logits(model, _layer_norm(dec.ln, x)), qk_stack
+
+
+def forward(model: Whisper, mel: torch.Tensor, tokens: torch.Tensor,
+            return_qk: bool = True, device=None):
+    """Teacher-forced full forward, the reference's ``model(mel, tokens)``
+    with its cross-attention QK hooks (JAX ``forward``): :func:`encode_audio`
+    then :func:`decode_text` with no median filter. Returns (logits (B, T,
+    vocab) f32, raw QK logits (L, B, H, T, F) f32 or None)."""
+    xa = encode_audio(model, mel, device=device)
+    return decode_text(model, tokens, xa, return_qk=return_qk, device=device)
 
 
 # ---------------------------------------------------------------------------

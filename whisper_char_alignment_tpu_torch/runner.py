@@ -166,6 +166,11 @@ class AlignmentPipeline:
             language=tokenizer.language or "en",
             sample_len=cfg.decode_sample_len or None)
         self.timers = StageTimers(self.device)
+        # shape telemetry for the MFU roll-up (utils/flops.py): the padded
+        # shapes each batch ran, (b_pad, n_live, kv_frames) per decode and
+        # (t_bucket, b_pad, n_live, reused_kv) per capture (JAX runner.py)
+        self.decode_shapes: List[tuple] = []
+        self.capture_shapes: List[tuple] = []
         # test/isolation hook: a callable (utts -> list[str]) that supplies
         # transcripts instead of the decode output (the decode still runs)
         self.transcribe_override = None
@@ -302,6 +307,7 @@ class AlignmentPipeline:
                                  if cfg.decode_frame_bucket_guarded
                                  else None),
                 async_results=True)
+        self.decode_shapes.append((b_pad, len(utts), kv_frames))
         return dict(utts=utts, future=future, mel=mel, xa=xa,
                     cross_kv=cross_kv if reuse_kv else None)
 
@@ -381,6 +387,8 @@ class AlignmentPipeline:
             dev = self.device
             xa_live = (None if cross_kv is not None
                        else xa[self._upload(xa_idx.astype(np.int64))])
+            self.capture_shapes.append((t_bucket, b_pad, len(live),
+                                        cross_kv is not None))
             token_len_t = self._upload(token_len)
             frame_len_t = self._upload(frame_len)
             tokens_t = self._upload(tokens_arr)

@@ -1,13 +1,14 @@
 """Byte-level BPE engine.
 
 Copy of ``whisper_char_alignment_tpu/text/bpe.py`` for the PyTorch port, which
-imports nothing of the JAX package; only imports changed. The optional native
-merge hook is dropped: the pure-Python BPE is the only path.
+imports nothing of the JAX package; only imports changed.
 
 Replaces the Rust tiktoken core behind ``whisper.tokenizer`` (reference dependency
 #13 in SURVEY.md §2b; call sites retokenize.py:8-24, infer_ali.py:41,69-75). Loads
 either tiktoken-format rank files (``base64(token_bytes) rank`` per line) or GPT-2
-``vocab.json`` + ``merges.txt``. Encoding is host work.
+``vocab.json`` + ``merges.txt``. Encoding is host work: a C++ core (cpp/bpe.cc) is
+used when built, with this pure-Python implementation as the always-available
+fallback and test oracle.
 
 Pre-tokenization implements the GPT-2/tiktoken pattern
 
@@ -116,6 +117,8 @@ class ByteBPE:
         self.ranks = ranks
         self.decoder: Dict[int, bytes] = {r: b for b, r in ranks.items()}
         self.n_vocab = max(ranks.values()) + 1
+        self._native = None
+        self._native_tried = False
 
     # -- construction ------------------------------------------------------
 
@@ -180,9 +183,19 @@ class ByteBPE:
         return [self.ranks[p] for p in parts]
 
     def encode_ordinary(self, text: str) -> List[int]:
+        native = self._get_native()
         ids: List[int] = []
         for piece in pre_tokenize(text):
-            ids.extend(self._bpe_merge(piece.encode("utf-8")))
+            b = piece.encode("utf-8")
+            if native is not None:
+                got = native.encode_piece(b)
+                if got is not None:
+                    ids.extend(got)
+                    continue
+                # the native core bounds its output buffer (4096 ids/piece);
+                # an overlong unmergeable piece falls back to the pure-Python
+                # merge instead of erroring ('z'*5000)
+            ids.extend(self._bpe_merge(b))
         return ids
 
     def decode_bytes(self, ids: Iterable[int]) -> bytes:
@@ -190,6 +203,19 @@ class ByteBPE:
 
     def decode(self, ids: Iterable[int]) -> str:
         return self.decode_bytes(ids).decode("utf-8", errors="replace")
+
+    # -- native core -------------------------------------------------------
+
+    def _get_native(self):
+        if not self._native_tried:
+            self._native_tried = True
+            try:
+                from . import _bpe_native
+
+                self._native = _bpe_native.build(self.ranks)
+            except Exception:
+                self._native = None
+        return self._native
 
 
 @functools.lru_cache()
