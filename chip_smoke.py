@@ -13,8 +13,9 @@ Phases (any failure exits non-zero and prints no final line):
    K transposed, at n_valid 1, 63, 64, 65, 1000 and 1500, at head dims 16,
    32 and 128 on a small B*H, and timed at T=1536 (aligned K^T rows); the
    QK post-process (B=8, H=16, T=96, F=1500) at widths 3, 7, 15, 17 and 31
-   (its median network) and 33 and 101 (rank selection) with ragged and
-   edge lengths; the DTW wavefront and backtrace (bit-equal), at
+   (sorted windows of their own width) and 33 and 101 (padded) with
+   ragged and edge lengths, each beside a bound from the bytes these
+   lengths need; the DTW wavefront and backtrace (bit-equal), at
    B=16, N<=120, M=1500 and at the ``DTW_SHAPES`` edges on tied integer and
    random costs, with pad rows and walks cut at window edges, timed beside
    their chains' floor (one dependent shuffle or shared-memory load per
@@ -111,9 +112,11 @@ Phases (any failure exits non-zero and prints no final line):
    and the CPU with equal files; an in-process ``serve`` with its warmups
    (8 concurrent /align in one batch and 4 concurrent /transcribe, each
    equal to its solo answer, a 413, no graph of a warmed shape captured
-   after the warmups). Logs windows, rungs, graph captures and their
-   seconds, the real-time factor, /align req/s and p50/p95 latency, and
-   peak device memory.
+   after the warmups, then one /align at ``medfilt_width=101``). The
+   graphed ``transcribe`` gives the QK post-process's width-7 row its
+   launches, the width-101 request that row's. Logs windows, rungs, graph
+   captures and their seconds, the real-time factor, /align req/s and
+   p50/p95 latency, and peak device memory.
 5. Two gloo ranks on the one card, the device named (``cuda:0``): this
    script started again as ``chip_smoke.py --mesh-worker RANK 2 INIT JOB``
    (the kernels already built), medium width, 8 utterances, ground-truth
@@ -135,6 +138,7 @@ from __future__ import annotations
 import contextlib
 import glob
 import json
+import math
 import os
 import pickle
 import subprocess
@@ -481,37 +485,49 @@ def kernel_phase():
 
 
 # median widths the QK post-process kernel is held and timed at: the main
-# path's 3 and 7, the network's widest (15 before this width was carried,
-# 31 now) and a width just past it, then rank selection at 33 (its first
-# width) and 101
+# path's 3, the CLI's default 7 (long form, /transcribe), 15 and 17, the
+# widest window of its own width (31), then padded register windows at 33
+# (the first) and 101
 QKPOST_WIDTHS = (3, 7, 15, 17, 31, 33, 101)
+# the kernel rows of the JSON line: width -> row name
+QKPOST_ROWS = {3: "qkpost", 7: "qkpost_w7", 17: "qkpost_w17",
+               33: "qkpost_rank", 101: "qkpost_w101"}
 
 
 def qkpost_bound(width: int, frame_len, token_len, shape):
-    """(bound ms, "bytes" or "operations") of the QK post-process at
-    ``width``: one read and one write of the (B, H, T, F) f32 logits, and
-    the median network's w (w - 1) / 2 compare-exchanges for every element
-    this run's lengths filter (rows < token_len, frames < frame_len, items
-    past the w//2 pass-through) plus 5 operations an element for the scale,
-    max, exp, sum and divide. Rank selection (w > 31) does more comparisons
-    than the network; the bound counts the network's."""
+    """(bound ms, "bytes" or "operations", bytes, bytes read, operations)
+    of the QK post-process at ``width``, counting what these inputs need.
+
+    Bytes: only rows < token_len x frames < frame_len are read (a row past
+    token_len is all zeros, a frame past frame_len exactly 0, exp(-inf)),
+    the whole (B, H, T, F) f32 output is written, and the two length
+    arrays are read. Operations: 5 per valid element (scale, max, exp, sum,
+    divide), plus ceil(log2 w) comparisons per element this run filters
+    (items past the w//2 pass-through): the least any comparison-based
+    sliding median spends placing each entering value in its sorted window.
+    A median network's w (w - 1) / 2 is the work of one design, not of the
+    function."""
     b, h, t, f = shape
-    nbytes = 2 * b * h * t * f * 4 + 2 * b * 4
     fl = frame_len.long().cpu()
     tl = token_len.long().cpu().clamp(max=t)
-    filtered = int((h * tl * fl * (fl > width // 2)).sum())
-    ops = filtered * width * (width - 1) // 2 + b * h * t * f * 5
+    valid = h * tl * fl
+    read = int(valid.sum()) * 4
+    nbytes = read + b * h * t * f * 4 + 2 * b * 4
+    filtered = int((valid * (fl > width // 2)).sum())
+    ops = 5 * int(valid.sum()) + filtered * math.ceil(math.log2(width))
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_F32
     return (max(by_bytes, by_ops) * 1e3,
-            "bytes" if by_bytes >= by_ops else "operations", nbytes, ops)
+            "bytes" if by_bytes >= by_ops else "operations", nbytes, read,
+            ops)
 
 
 def qkpost_rows(gen):
     """The QK post-process kernel at (8, 16, 96, 1500), ragged and edge
     lengths, at every ``QKPOST_WIDTHS`` width against its plain version,
-    each timed beside its bound: rows for width 3 (the smoke's main path),
-    17 (the CLI run's, on the network) and 33 (the CLI's default-timing
-    run's, on rank selection)."""
+    each timed beside its bound; the ``QKPOST_ROWS`` widths give rows: 3
+    (the smoke's main path), 7 (long form and /transcribe), 17 (the CLI
+    run's), 33 (the CLI's default-timing run's, the first padded window)
+    and 101 (a /align request's ``medfilt_width``)."""
     import torch
 
     from whisper_char_alignment_tpu_torch.ops import qkpost_cuda
@@ -532,20 +548,21 @@ def qkpost_rows(gen):
         err = (out - ref).abs().max().item()
         check(err <= 1e-6, f"qkpost width {width}: max err {err:.3g}")
         del out, ref
-        bound, bound_by, nbytes, ops = qkpost_bound(width, frame_len,
-                                                    token_len, shape)
+        bound, bound_by, nbytes, read, ops = qkpost_bound(
+            width, frame_len, token_len, shape)
         call = lambda: qkpost_cuda.qk_postprocess(  # noqa: E731
             qk, frame_len, token_len, width)
         ms, method = kernel_ms(call, "qkpost_kernel", bound)
         plain_ms = cuda_ms(lambda: qkpost_cuda.qk_postprocess_plain(
             qk, frame_len, token_len, width), iters=3, warmup=1)
-        path = ("network" if width <= qkpost_cuda.NET_WIDTH
-                else "rank selection")
-        log(f"qkpost (8,16,96,1500) w={width} ({path}): max abs err "
-            f"{err:.3g} (tol 1e-6); kernel {ms:.4f} ms ({method}), plain "
+        window = ("exact" if width <= qkpost_cuda.EXACT_WIDTH else "padded"
+                  if width <= qkpost_cuda.PAD_WIDTH else "shared-memory")
+        log(f"qkpost (8,16,96,1500) w={width} ({window} window): max abs "
+            f"err {err:.3g} (tol 1e-6); kernel {ms:.4f} ms ({method}), plain "
             f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}; "
-            f"{nbytes / 1e6:.0f} MB, {ops / 1e9:.2f} G operations)")
-        name = {3: "qkpost", 17: "qkpost_w17", 33: "qkpost_rank"}.get(width)
+            f"{read / 1e6:.2f} MB read, {nbytes / 1e6:.2f} MB in all, "
+            f"{ops / 1e6:.1f} M operations; {bound / ms:.1%} of it)")
+        name = QKPOST_ROWS.get(width)
         if name:
             rows[name] = dict(
                 name=name, route="cuda",
@@ -1847,7 +1864,7 @@ def cli_base_args(scp: str) -> list:
             "--profile"]
 
 
-# the CLI's README recipe at median width 17 (the QK post-process's network)
+# the CLI's README recipe at median width 17
 RECIPE_W17 = ["--medfilt_width", "17", "--aggr", "topk", "--topk", "10",
               "--save_prediction"]
 
@@ -1855,9 +1872,9 @@ RECIPE_W17 = ["--medfilt_width", "17", "--aggr", "topk", "--topk", "10",
 def cli_phase(model, tok, scp: str, n_utts: int, card: str):
     """``infer_ali`` at Whisper-medium width through ``cli.infer_ali.main``,
     with the model loader replaced by the smoke's medium model, twice: the
-    README recipe at median width 17 (the network) with
+    README recipe at median width 17 (a register window) with
     ``--save_prediction``, then ``--default_whisper_timing`` at width 33
-    (rank selection). Each run's launch counts are set to 0 just before it
+    (a padded window). Each run's launch counts are set to 0 just before it
     and must be exact after it; every batch's jump frames equal the NumPy
     DTW oracle; ``eval_ali`` on the written pkl gives the CLI's own
     precision, recall and F1. Returns each run's counts, and the width-17
@@ -2429,7 +2446,7 @@ def windows_of(log_: dict) -> dict:
     return rungs
 
 
-def transcribe_phase(model, tok, card: str) -> None:
+def transcribe_phase(model, tok, card: str) -> int:
     """``transcribe`` at Whisper-medium width on 65 s of speech-like audio
     (three windows): the published ladder (0.0 ... 1.0; random weights
     climb all of it), conditioning on previous text, ``language=None`` (the
@@ -2440,7 +2457,8 @@ def transcribe_phase(model, tok, card: str) -> None:
     run's. Each run's launch counts are set to 0 before it and equal after
     it the counts of what it executed; every word-timing DTW equals the
     NumPy oracle. Logs windows, rungs per window, graph captures and their
-    seconds, the decode/word-timing split and the real-time factor."""
+    seconds, the decode/word-timing split and the real-time factor. Returns
+    the graphed run's QK post-process launches (median width 7)."""
     import torch
 
     from whisper_char_alignment_tpu_torch import transcribe as T
@@ -2516,6 +2534,7 @@ def transcribe_phase(model, tok, card: str) -> None:
         f"bit ({len(graphed['segments'])} segments); wall {g_wall:.3f} s "
         f"graphed (captures included), {e_wall:.3f} s eager "
         f"({e_wall / g_wall:.2f}x); topk run's decodes equal the default's")
+    return results["graphed"][1]["qkpost"]
 
 
 def batched_phase(model, model32, tok, card: str) -> None:
@@ -2711,7 +2730,7 @@ def _wav_bytes(audio) -> bytes:
             return g.read()
 
 
-def serve_phase(model, tok, card: str) -> None:
+def serve_phase(model, tok, card: str) -> int:
     """The HTTP server at Whisper-medium width on the card, in process, on
     ``model`` (the random bf16 weights computed in float32: /transcribe's
     batched decode is held against solo runs, see :func:`batched_phase`):
@@ -2722,8 +2741,10 @@ def serve_phase(model, tok, card: str) -> None:
     one; 4 /transcribe requests of 9-25 s at once (their first windows in
     one shared decode of 4 rows), each equal to the solo ``transcribe``; a
     413 for an oversized body. No graph of a warmed shape is captured after
-    the warmups, and the launch counts are exact. Logs /align req/s
-    and p50/p95 latency, the /transcribe wall and peak device memory."""
+    the warmups, and the launch counts are exact. Then one /align at
+    ``medfilt_width=101``, its launch counts exact. Logs /align req/s
+    and p50/p95 latency, the /transcribe wall and peak device memory.
+    Returns the width-101 request's QK post-process launches."""
     import threading
     import urllib.error
     import urllib.request
@@ -2901,6 +2922,34 @@ def serve_phase(model, tok, card: str) -> None:
             serve_mod.MAX_BODY_BYTES = old_cap
         check(status == 413, f"[serve] oversized body answered {status}")
         peak = torch.cuda.max_memory_allocated()
+
+        # one /align request at medfilt_width=101: the QK post-process's
+        # padded window on a user's path
+        wide_log = {}
+        srv.batcher.linger_s = 0.0
+        with long_form_spies(wide_log):
+            _lib.reset_launches()
+            k = next(i for i, o in enumerate(solo) if len(o["words"]) >= 2)
+            wide = post("align?medfilt_width=101", align_bodies[k])[0]
+            torch.cuda.synchronize()
+            wide_counts = _lib.launch_counts()
+        expect = expected_long_form(model.dims, wide_log)
+        expect["qkpost_rank"], expect["qkpost"] = expect["qkpost"], 0
+        log(f"[serve] /align?medfilt_width=101 launch counts: {wide_counts} "
+            f"(expected {expect})")
+        check(wide_counts == expect and wide_log["captures"] == 1,
+              "[serve] /align at width 101: launch counts differ from the "
+              "path's")
+        # the decode is the width-3 response's; only the times may differ
+        check(wide["words"] == solo[k]["words"]
+              and wide["transcription"] == solo[k]["transcription"]
+              and len(wide["end_times"]) == len(solo[k]["end_times"])
+              and all(math.isfinite(x) for x in wide["end_times"]),
+              f"[serve] /align at width 101: {wide} against the width-3 "
+              f"response {solo[k]}")
+        held += hold_jump_frames(wide_log["dtw"][0],
+                                 range(wide_log["dtw"][0][0].shape[0]),
+                                 "[serve] /align at width 101")
     finally:
         srv.shutdown()
         srv.batcher.close()
@@ -2920,12 +2969,15 @@ def serve_phase(model, tok, card: str) -> None:
         f"an oversized body; no capture of a warmed shape after the warmups "
         f"({len(new_keys)} of prompted later windows); {held} DTW rows "
         f"equal the NumPy oracle; peak device memory {peak / 2**30:.2f} GiB")
+    return wide_counts["qkpost_rank"]
 
 
-def long_form_phases(model, tok, card: str) -> None:
+def long_form_phases(model, tok, card: str) -> dict:
     """The long-form and serving paths (phase 4), each with its launch
     counts set to 0 just before it and read just after, with the toy
-    tokenizer padded to the model's vocabulary."""
+    tokenizer padded to the model's vocabulary. Returns the QK
+    post-process launches of the graphed ``transcribe`` (width 7) and of
+    the /align request at width 101, by kernel row."""
     import torch
 
     from whisper_char_alignment_tpu_torch.models import whisper as wm
@@ -2935,11 +2987,12 @@ def long_form_phases(model, tok, card: str) -> None:
     # the same random bf16 weights computed in float32, where a batched
     # decode and a solo one agree to rounding (batched_phase)
     model32 = wm.cast_params(model, torch.float32)
-    transcribe_phase(model, tok, card)
+    w7 = transcribe_phase(model, tok, card)
     batched_phase(model, model32, tok, card)
     transcribe_cli_phase(model, tok, card)
-    serve_phase(model32, tok, card)
+    w101 = serve_phase(model32, tok, card)
     log(f"[long form] phases done in {time.perf_counter() - t0:.1f} s")
+    return {"qkpost_w7": w7, "qkpost_w101": w101}
 
 
 def main_path_phase(card: str):
@@ -3042,7 +3095,7 @@ def main_path_phase(card: str):
         checkpoint_phase(model, tok, dataset, scp, recipe, seen, card)
     cli_counts["probe"] = probe_phase(model, tok, card)
     log(f"tiny model CLI, card vs CPU: {tiny_cli_phase()}")
-    long_form_phases(model, tok, card)
+    cli_counts["long_form"] = long_form_phases(model, tok, card)
     return counts, counts2, counts_int8, cli_counts, seen["dtw_inputs"]
 
 
@@ -3344,8 +3397,9 @@ def main() -> int:
     mesh_phase(card)
     # each row's launches come from the run whose path holds its kernel: the
     # default run, the int8 + bucket run for the mel and cross-attention
-    # kernels, the CLI's width-17 run for the QK post-process's network at
-    # 17 and its default-timing run (width 33) for rank selection; row 5 is
+    # kernels, the CLI's width-17 run for the QK post-process at 17, its
+    # default-timing run (width 33) for the padded windows, the graphed
+    # long-form run (width 7) and the /align request at width 101; row 5 is
     # row 3a's kernel
     for name, row in rows.items():
         run, counter = counts, name
@@ -3358,6 +3412,8 @@ def main() -> int:
         elif name in ("qkpost_w17", "qkpost_rank"):
             counter = "qkpost" if name == "qkpost_w17" else name
             run = cli_counts[counter]
+        elif name in ("qkpost_w7", "qkpost_w101"):
+            run = cli_counts["long_form"]
         row["launches"] = run[counter]
     # ms_method: "trace" (the kernel's traced device time) or "events" (the
     # whole call by CUDA events, where three traces held no record of it)

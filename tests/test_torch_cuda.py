@@ -236,37 +236,57 @@ def test_mel_kernel_refuses_more_than_128_mels(cuda):
         mel_cuda.log_mel(torch.zeros((1, 4000), device=cuda), n_mels=129)
 
 
-# the median network's widths, then rank selection's (any odd width above)
-@pytest.mark.parametrize("width", [1, 3, 7, 15, 17, 31, 33, 101])
-def test_qkpost_kernel(cuda, width):
-    rng = np.random.default_rng(width)
-    qk = torch.from_numpy(rng.normal(0, 2, (4, 2, 9, 300)).astype(
-        np.float32)).to(cuda)
-    fl = torch.tensor([1, width // 2 + 1, 299, 300], dtype=torch.int32,
-                      device=cuda)
-    tl = torch.tensor([9, 1, 4, 8], dtype=torch.int32, device=cuda)
-    got = qkpost_cuda.qk_postprocess(qk, fl, tl, width, 0.5)
-    want = qkpost_cuda.qk_postprocess_plain(qk, fl, tl, width, 0.5)
-    assert (got - want).abs().max().item() <= 1e-6
+def _qkpost_lengths(width, f, t):
+    """(frame_len, token_len) per item: one frame; w/2 (passed through) and
+    w/2 + 1 (the first filtered length); frame lengths where the last lane's
+    run of ceil(fl/32) columns, made odd, ends before the warp's end (31),
+    fills every lane with one column (32), ends at a run's last column (33:
+    11 runs of 3), holds one column (34) and two (97: 19 runs of 5 and 2);
+    F - 1 and F. token_len T, 1 and values between."""
+    fl = [1, max(width // 2, 1), width // 2 + 1, 31, 32, 33, 34, 97, f - 1,
+          f]
+    tl = [t, 1, t, 3, 1, t, 2, t - 1, t, 1]
+    return ([min(max(v, 1), f) for v in fl], tl)
 
 
-@pytest.mark.parametrize("width", [3, 31, 33, 101])
-def test_qkpost_kernel_on_tied_logits(cuda, width):
-    """Logits of three values: most windows hold ties at their median, and
-    items at frame_len w/2 (passed through) and w/2 + 1 (filtered)."""
-    rng = np.random.default_rng(100 + width)
-    qk = torch.from_numpy(rng.integers(-1, 2, (4, 2, 5, 257)).astype(
-        np.float32)).to(cuda)
-    fl = torch.tensor([width // 2, width // 2 + 1, 200, 257],
-                      dtype=torch.int32, device=cuda)
-    tl = torch.tensor([5, 5, 3, 5], dtype=torch.int32, device=cuda)
-    name = "qkpost" if width <= qkpost_cuda.NET_WIDTH else "qkpost_rank"
+def _qkpost_case(cuda, width, qk, scale):
+    b, _, t, f = qk.shape
+    fl, tl = _qkpost_lengths(width, f, t)
+    fl = torch.tensor(fl[:b], dtype=torch.int32, device=cuda)
+    tl = torch.tensor(tl[:b], dtype=torch.int32, device=cuda)
+    name = "qkpost" if width <= qkpost_cuda.EXACT_WIDTH else "qkpost_rank"
     before = _lib.launch_counts()
-    got = qkpost_cuda.qk_postprocess(qk, fl, tl, width)
+    got = qkpost_cuda.qk_postprocess(qk, fl, tl, width, scale)
     after = _lib.launch_counts()
     assert after.pop(name) == before.pop(name) + 1 and after == before
-    want = qkpost_cuda.qk_postprocess_plain(qk, fl, tl, width)
+    want = qkpost_cuda.qk_postprocess_plain(qk, fl, tl, width, scale)
     assert (got - want).abs().max().item() <= 1e-6
+
+
+# widths of the exact register windows (31 the widest), of the padded ones
+# (33 and 39 in a capacity of 40, 41 in 48, 101 in 112, 127 in 128) and of
+# the shared-memory window (129 and above); F = 300 and 1500 (rows on 16-byte
+# boundaries: 300 floats is 75 vectors), 257 and 1501 (rows that start off
+# one, so each row's copy and stores take a 4-byte head and tail)
+@pytest.mark.parametrize("f", [300, 257, 1500, 1501])
+@pytest.mark.parametrize("width", [1, 3, 7, 9, 15, 17, 31, 33, 39, 41,
+                                   101, 127, 129])
+def test_qkpost_kernel(cuda, width, f):
+    rng = np.random.default_rng(width * 7 + f)
+    qk = torch.from_numpy(rng.normal(0, 2, (10, 2, 9, f)).astype(
+        np.float32)).to(cuda)
+    _qkpost_case(cuda, width, qk, 0.5)
+
+
+@pytest.mark.parametrize("f", [257, 1501])
+@pytest.mark.parametrize("width", [3, 31, 33, 101, 129])
+def test_qkpost_kernel_on_tied_logits(cuda, width, f):
+    """Logits of three values: most windows hold ties at their median,
+    which the sliding window deletes one copy of at a time."""
+    rng = np.random.default_rng(100 + width + f)
+    qk = torch.from_numpy(rng.integers(-1, 2, (10, 2, 5, f)).astype(
+        np.float32)).to(cuda)
+    _qkpost_case(cuda, width, qk, 1.0)
 
 
 def _dtw_lengths(n, m, rng):

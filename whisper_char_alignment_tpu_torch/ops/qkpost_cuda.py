@@ -15,10 +15,12 @@ import torch
 from . import _lib
 from .medfilt import median_filter_masked
 
-# widest median the kernel takes with its network (kMaxNetWidth in
-# csrc/qkpost.cu); wider odd widths take rank selection, whose launches are
-# counted as "qkpost_rank"
-NET_WIDTH = 31
+# widest median whose sorted window has a kernel of its own width
+# (kMaxExactWidth in csrc/qkpost.cu); a wider odd width takes a padded
+# register window up to PAD_WIDTH and a shared-memory window above, and its
+# launches are counted as "qkpost_rank"
+EXACT_WIDTH = 31
+PAD_WIDTH = 127
 
 
 def qk_postprocess_plain(qk: torch.Tensor, frame_len: torch.Tensor,
@@ -48,7 +50,10 @@ def qk_postprocess(qk: torch.Tensor, frame_len: torch.Tensor,
 
     qk (B, H, T, F) float32 contiguous; frame_len, token_len (B,) int32 on
     the same device, frame_len in [1, F]; width any odd positive number (the
-    kernel's median network up to ``NET_WIDTH``, rank selection above)."""
+    kernel's sorted windows sit in registers up to ``PAD_WIDTH`` and in
+    shared memory above; the kernel raises where its buffers do not fit in
+    a block's shared memory: above F=9,680, and at F=1500 above width
+    767)."""
     if qk.ndim != 4:
         raise ValueError(f"qk must be (B, H, T, F), got {tuple(qk.shape)}")
     if width <= 0 or width % 2 != 1:
@@ -68,7 +73,7 @@ def qk_postprocess(qk: torch.Tensor, frame_len: torch.Tensor,
     token_len = token_len.contiguous()
     out = torch.empty_like(qk)
     lib = _lib.library()
-    _lib.count("qkpost" if width <= NET_WIDTH else "qkpost_rank")
+    _lib.count("qkpost" if width <= EXACT_WIDTH else "qkpost_rank")
     rc = lib.wca_qkpost(qk.data_ptr(), out.data_ptr(), frame_len.data_ptr(),
                         token_len.data_ptr(), b, h, t, f, width,
                         float(qk_scale), _lib.stream_of(qk))
