@@ -117,7 +117,21 @@ Phases (any failure exits non-zero and prints no final line):
    launches, the width-101 request that row's. Logs windows, rungs, graph
    captures and their seconds, the real-time factor, /align req/s and
    p50/p95 latency, and peak device memory.
-5. Two gloo ranks on the one card, the device named (``cuda:0``): this
+5. The port's benchmark programs at Whisper-medium width: each module's
+   ``run`` in process on the bf16 model at cut sizes (``bench``: 16
+   utterances at batch 8, one pass, its guarded sweep at 32 steps;
+   ``scripts.bench_serve``: 8 requests from 4 clients, /align and
+   /transcribe at temperature 0; ``scripts.measure_latency``: 3 calls;
+   ``scripts.bench_transcribe_longform``: 35 s, one timed call;
+   ``scripts.bench_probe``: 8 utterances, one pass), each with its launch
+   counts set to 0 before it and equal after it to the counts of what it
+   ran, its one line's keys, no decode graph captured in a timed pass,
+   ``bench``'s NumPy DTW recompute and the first DTW call against the
+   oracle; then ``python -m whisper_char_alignment_tpu_torch.bench`` in a
+   subprocess (16 utterances, batch 8, one pass, no sweep) printing
+   exactly one JSON line. Logs each run's line, with the card's name and
+   power limit, and the phase's seconds.
+6. Two gloo ranks on the one card, the device named (``cuda:0``): this
    script started again as ``chip_smoke.py --mesh-worker RANK 2 INIT JOB``
    (the kernels already built), medium width, 8 utterances, ground-truth
    transcripts. Tensor parallelism over 2 ranks and data parallelism over
@@ -127,7 +141,7 @@ Phases (any failure exits non-zero and prints no final line):
    model axis decodes eagerly, a data axis replays graphs. Per-rank wall
    and stages are printed ("gloo, one card": a check of function, no
    measure of NCCL).
-6. A JSON line of per-kernel numbers, then
+7. A JSON line of per-kernel numbers, then
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -2995,6 +3009,259 @@ def long_form_phases(model, tok, card: str) -> dict:
     return {"qkpost_w7": w7, "qkpost_w101": w101}
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the port's benchmark programs
+# ---------------------------------------------------------------------------
+
+# the keys of each program's one JSON line: the JAX script's, and the three
+# every line of the port carries
+BENCH_COMMON_KEYS = {"device", "launches", "graph_captures_timed"}
+BENCH_KEYS = {
+    "bench": {"metric", "value", "unit", "vs_baseline", "n_utts", "batch",
+              "passes", "pipeline_depth", "sort_by_duration",
+              "reuse_cross_kv", "decode_len", "decode_frame_bucket",
+              "decode_frame_bucket_guarded", "mfu", "decode_sweep",
+              "stage_split_s", "best_pass_wall_s"},
+    "bench_serve": {"metric", "value", "unit", "vs_baseline",
+                    "serial_req_per_sec", "speedup_vs_serial",
+                    "p50_serial_ms", "p50_concurrent_ms", "n_reqs",
+                    "clients", "batch", "decode_len", "audio_seconds",
+                    "batcher_launches", "batcher_reqs", "p95_concurrent_ms",
+                    "concurrent_samples", "peak_device_mem_gib"},
+    "bench_transcribe_longform": {"metric", "value", "unit", "min_wall_s",
+                                  "median_wall_s", "segments",
+                                  "seconds_audio"},
+    "measure_latency": {"metric", "value", "unit", "transcribe_median_ms",
+                        "samples"},
+    "bench_probe": {"metric", "value", "unit", "hit_rate"},
+}
+
+
+def check_payload(name: str, payload: dict) -> None:
+    """A program's one line: every key of its contract, a positive rate."""
+    missing = (BENCH_KEYS[name] | BENCH_COMMON_KEYS) - set(payload)
+    check(not missing, f"[{name}] payload lacks {sorted(missing)}")
+    check(isinstance(payload["value"], (int, float)) and payload["value"] > 0,
+          f"[{name}] value {payload['value']}")
+
+
+@contextlib.contextmanager
+def bench_spies(log_: dict):
+    """Count, while the block runs, the encoder runs
+    (``whisper.encode_audio``), the teacher-forced captures
+    (``timing.get_attentions``), the calls of the DTW kernels' entry
+    (``timing.dtw_jump_frames``, the first one's inputs and jump frames
+    kept for the NumPy oracle), and the decode steps whose cross K/V are
+    int8, read from the graph runner's replay record around each graphed
+    loop (replayed steps plus a capture's warm-up step, which launch the
+    kernels)."""
+    from whisper_char_alignment_tpu_torch.align import timing
+    from whisper_char_alignment_tpu_torch.models import decode_graph
+    from whisper_char_alignment_tpu_torch.models import whisper as wm
+
+    encode, attentions, jump, loop = (wm.encode_audio, timing.get_attentions,
+                                      timing.dtw_jump_frames,
+                                      decode_graph.graphed_loop)
+    log_.update(encodes=0, captures=0, dtw=0, int8_steps=0, first_dtw=None)
+
+    def counted_encode(*a, **kw):
+        log_["encodes"] += 1
+        return encode(*a, **kw)
+
+    def counted_attentions(*a, **kw):
+        log_["captures"] += 1
+        return attentions(*a, **kw)
+
+    def counted_jump(x, n, m):
+        out = jump(x, n, m)
+        log_["dtw"] += 1
+        if log_["first_dtw"] is None:
+            log_["first_dtw"] = (x.clone(), n.clone(), m.clone(), out.clone())
+        return out
+
+    def counted_loop(*a, **kw):
+        before = decode_graph.replay_record()
+        out = loop(*a, **kw)
+        after = decode_graph.replay_record()
+        if isinstance(out[4][0], tuple):  # int8 codes and scales
+            log_["int8_steps"] += (after["steps"] - before["steps"]
+                                   + after["warmup_steps"]
+                                   - before["warmup_steps"])
+        return out
+
+    with patched(wm, encode_audio=counted_encode), \
+            patched(timing, get_attentions=counted_attentions,
+                    dtw_jump_frames=counted_jump), \
+            patched(decode_graph, graphed_loop=counted_loop):
+        yield
+
+
+def bench_expected(dims, log_: dict, dtw_per_capture: int = 1) -> dict:
+    """A program's launch counts from what it executed: the encoder kernel
+    once a layer per encoder run, the QK post-process once a decoder layer
+    per capture, the DTW kernels ``dtw_per_capture`` times per capture (the
+    probe's per-head DTW: one launch per group of layers), the int8
+    cross-attention once a decoder layer per int8 decode step; nothing
+    else."""
+    from whisper_char_alignment_tpu_torch.ops import _lib
+
+    out = dict.fromkeys(_lib.LAUNCHES, 0)
+    out.update(encoder_attn=dims.n_audio_layer * log_["encodes"],
+               qkpost=dims.n_text_layer * log_["captures"],
+               dtw_trace=dtw_per_capture * log_["captures"],
+               dtw_backtrace=dtw_per_capture * log_["captures"],
+               cross_attn_int8=dims.n_text_layer * log_["int8_steps"])
+    return out
+
+
+def bench_run(name: str, fn, dims, card: str, dtw_per_capture: int = 1):
+    """One program's ``run`` in process: launch counts set to 0 before it
+    and, after it, equal to the counts of what it executed; its payload
+    checked (keys, a positive rate, no graph captured in a timed pass);
+    the first DTW call's jump frames equal to the NumPy DTW oracle. Returns
+    (payload, the spies' log)."""
+    import torch
+
+    from whisper_char_alignment_tpu_torch.ops import _lib
+
+    log_ = {}
+    _lib.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with bench_spies(log_):
+        payload = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _lib.launch_counts()
+    expect = bench_expected(dims, log_, dtw_per_capture)
+    log(f"[{name}] launch counts: {counts} (expected {expect}; "
+        f"{log_['encodes']} encoder runs, {log_['captures']} captures, "
+        f"{log_['dtw']} DTW calls, {log_['int8_steps']} int8 decode steps)")
+    check(counts == expect, f"[{name}] launch counts differ from the path's")
+    check(log_["dtw"] == dtw_per_capture * log_["captures"],
+          f"[{name}] {log_['dtw']} DTW calls for {log_['captures']} captures")
+    check_payload(name.split()[0], payload)
+    check(payload["graph_captures_timed"] == 0,
+          f"[{name}] {payload['graph_captures_timed']} decode graphs "
+          "captured inside timed passes")
+    if log_["first_dtw"] is not None:
+        call = log_["first_dtw"]
+        sample = range(min(32, call[0].shape[0]))
+        hold_jump_frames(call, sample, f"[{name}] DTW")
+    log(f"[{name}] on {card} in {seconds:.1f} s: {json.dumps(payload)}")
+    return payload, log_
+
+
+def bench_phase(model, tok, card: str, device: str = "cuda") -> None:
+    """The port's five benchmark programs at Whisper-medium width: each
+    module's ``run`` in process on the smoke's bf16 model at cut sizes
+    (bench: 16 utterances, batch 8, one pass, the sweep at 32 steps only;
+    bench_serve: 8 requests from 4 clients, /align and /transcribe at
+    temperature 0; measure_latency: 3 calls; the long form: 35 s, one
+    timed call; the probe: 8 utterances, one pass), each with exact launch
+    counts, its payload's keys, no graph captured in a timed pass, and
+    bench's NumPy DTW recompute; then ``python -m
+    whisper_char_alignment_tpu_torch.bench`` in a subprocess (16
+    utterances, batch 8, one pass, no sweep): exactly one JSON line on its
+    stdout."""
+    import torch
+
+    from whisper_char_alignment_tpu_torch import bench
+    from whisper_char_alignment_tpu_torch.cli import probe_oracle
+    from whisper_char_alignment_tpu_torch.scripts import (
+        bench_probe, bench_serve, bench_transcribe_longform, measure_latency)
+
+    t_phase = time.perf_counter()
+    dims = model.dims
+    dev = torch.device(device)
+    n_batches = -(-N_UTTS // BATCH)
+
+    s = bench.Settings(n_utts=N_UTTS, batch=BATCH, passes=1,
+                       sweep_lens=(DECODE_LEN,), sweep_passes=1)
+    out, log_ = bench_run("bench", lambda: bench.run(
+        model, tok, device=dev, settings=s), dims, card)
+    per_batch = dict.fromkeys(out["launches"], 0)
+    per_batch.update(encoder_attn=dims.n_audio_layer * n_batches,
+                     qkpost=dims.n_text_layer * n_batches,
+                     dtw_trace=n_batches, dtw_backtrace=n_batches)
+    cells = out["decode_sweep"]["cells"]
+    run_cells = [c for c in cells if c.get("source") != "headline"]
+    # warmup + passes for the headline and each cell, and the recompute
+    batches = n_batches * (1 + s.passes) * (1 + len(run_cells)) + 1
+    check(out["launches"] == per_batch,
+          f"[bench] the reported pass's launches {out['launches']}")
+    check(len(cells) == 3 and len(run_cells) == 2
+          and log_["captures"] == log_["encodes"] == batches
+          and log_["int8_steps"] > 0 and out["dtw_oracle_fid"],
+          f"[bench] {len(cells)} sweep cells, {log_['captures']} captures, "
+          f"{log_['encodes']} encoder runs for {batches} batches")
+    check([c["flag_rate"] for c in run_cells] == [0.0, 1.0],
+          f"[bench] sweep flag rates {[c['flag_rate'] for c in run_cells]}")
+
+    for endpoint in ("align", "transcribe"):
+        ss = bench_serve.Settings(n_reqs=8, clients=4, batch=BATCH,
+                                  endpoint=endpoint, temperature="0")
+        name = f"bench_serve {endpoint}"
+        out, log_ = bench_run(name, lambda: bench_serve.run(
+            model, tok, device=dev, settings=ss), dims, card)
+        check(out["batcher_reqs"] >= 2 * ss.n_reqs
+              and (endpoint == "transcribe" and log_["captures"] == 0
+                   or log_["captures"] == out["batcher_launches"]),
+              f"[{name}] {out['batcher_reqs']} requests in "
+              f"{out['batcher_launches']} batches, {log_['captures']} "
+              "captures")
+        log(f"[{name}] peak device memory {out['peak_device_mem_gib']} GiB")
+
+    ls = measure_latency.Settings(iters=3)
+    out, log_ = bench_run("measure_latency", lambda: measure_latency.run(
+        model, tok, device=dev, settings=ls), dims, card)
+    check(log_["captures"] == 1 + ls.iters,
+          f"[measure_latency] {log_['captures']} captures")
+
+    ts = bench_transcribe_longform.Settings(seconds_audio=35.0, iters=1)
+    out, log_ = bench_run(
+        "bench_transcribe_longform", lambda: bench_transcribe_longform.run(
+            model, vocab_tokenizer(dims.n_vocab), device=dev, settings=ts),
+        dims, card)
+    check(out["segments"] >= 1 and log_["captures"] == 0,
+          f"[bench_transcribe_longform] {out['segments']} segments")
+
+    ps = bench_probe.Settings(n_utts=BATCH, batch=BATCH, passes=1)
+    heads = ps.batch * dims.n_text_head
+    layers = max(1, probe_oracle.ROWS_PER_LAUNCH // heads)
+    n_launch = -(-dims.n_text_layer // layers)
+    out, log_ = bench_run("bench_probe", lambda: bench_probe.run(
+        model, tok, device=dev, settings=ps), dims, card,
+        dtw_per_capture=n_launch)
+    check(out["launches"]["dtw_trace"] == n_launch
+          and out["launches"]["encoder_attn"] == dims.n_audio_layer,
+          f"[bench_probe] the reported pass's launches {out['launches']}")
+
+    # the one-line contract of the full-width entry point in a process of
+    # its own (the kernel library already built)
+    env = dict(os.environ, WCA_BENCH_UTTS=str(N_UTTS),
+               WCA_BENCH_BATCH=str(BATCH), WCA_BENCH_PASSES="1",
+               WCA_BENCH_SWEEP="0")
+    env.pop("WCA_PLATFORM", None)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "whisper_char_alignment_tpu_torch.bench"],
+        cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
+    lines = [l for l in proc.stdout.splitlines() if l.strip()]
+    check(proc.returncode == 0 and len(lines) == 1,
+          f"[bench subprocess] exit {proc.returncode}, {len(lines)} stdout "
+          f"lines; stderr: {proc.stderr[-3000:]}")
+    payload = json.loads(lines[0])
+    check_payload("bench", payload)
+    check(payload["graph_captures_timed"] == 0 and payload["n_utts"] == N_UTTS
+          and payload["launches"] == per_batch,
+          f"[bench subprocess] {lines[0]}")
+    log(f"[bench subprocess] one line in {time.perf_counter() - t0:.1f} s "
+        f"on {card}: {lines[0]}")
+    log(f"[benchmark programs] phase done in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main_path_phase(card: str):
     import torch
 
@@ -3096,6 +3363,7 @@ def main_path_phase(card: str):
     cli_counts["probe"] = probe_phase(model, tok, card)
     log(f"tiny model CLI, card vs CPU: {tiny_cli_phase()}")
     cli_counts["long_form"] = long_form_phases(model, tok, card)
+    bench_phase(model, tok, card)
     return counts, counts2, counts_int8, cli_counts, seen["dtw_inputs"]
 
 

@@ -741,3 +741,24 @@ def test_forward_and_qk_to_attention_on_the_card(cuda, dtype):
                               frame_len=frame_len, token_len=token_len,
                               qk_scale=1.3, return_logits=False)
     assert torch.equal(stack, torch.stack(attn))
+
+
+def test_a_pipeline_on_the_card_keeps_the_callers_model(cuda):
+    """A model already in the compute dtype on the card is the pipeline's
+    own module, not a copy: ``api.align`` and every pipeline of a server
+    share its decode graphs (``cast_params`` with ``cuda`` unindexed)."""
+    from whisper_char_alignment_tpu_torch.config import (AlignConfig,
+                                                         tiny_test_dims)
+    from whisper_char_alignment_tpu_torch.runner import AlignmentPipeline
+    from whisper_char_alignment_tpu_torch.text.tokenizer import \
+        get_test_tokenizer
+
+    tok = get_test_tokenizer()
+    dims = tiny_test_dims(n_vocab=tok.n_vocab, n_audio_ctx=32, n_text_ctx=24,
+                          state=16, head=2, layers=2)
+    model = tw.init_params(tw.Whisper(dims, device=cuda),
+                           torch.Generator(device=cuda).manual_seed(0))
+    assert tw.cast_params(model, torch.float32, "cuda") is model
+    assert AlignmentPipeline(model, tok, AlignConfig()).model is model
+    copy = tw.cast_params(model, torch.bfloat16, "cuda")
+    assert copy is not model and copy.device == model.device

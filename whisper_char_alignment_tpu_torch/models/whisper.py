@@ -226,8 +226,12 @@ def cast_params(model: Whisper, dtype: torch.dtype,
     as it was. The int8 leaves of :func:`quantize_encoder_int8` keep their
     types, as JAX ``cast_params`` keeps them: ``w8`` int8 and ``s`` float32
     (``Module.to(dtype)`` casts every floating buffer, so ``s`` is put
-    back)."""
+    back). A card named without an index is the current one: a model
+    already there is not copied (``torch.device("cuda")`` does not equal
+    its tensors' ``cuda:0``)."""
     device = model.device if device is None else torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     if model.dtype == dtype and model.device == device:
         return model
     out = copy.deepcopy(model).to(device=device, dtype=dtype)
