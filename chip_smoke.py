@@ -131,7 +131,21 @@ Phases (any failure exits non-zero and prints no final line):
    subprocess (16 utterances, batch 8, one pass, no sweep) printing
    exactly one JSON line. Logs each run's line, with the card's name and
    power limit, and the phase's seconds.
-6. Two gloo ranks on the one card, the device named (``cuda:0``): this
+6. The port's profiling programs (``scripts/profile_*.py``) at
+   Whisper-medium width: each ``main`` in process at a cut size
+   (``PROFILE_RUNS``: the decode-step ablation at B=8 and 8 steps with
+   ``INT8_PALLAS=1``, the pipeline at batch 4 with ``PROF_INT8=1`` and
+   ``--reuse``, the probe's DTW at its 1024-row chunk, the others at
+   batches of 2-4 and one or two timed calls), its stdout captured: it
+   must print exactly one JSON line of positive, finite readings, capture
+   no graph in a timed call, and report the launches its timed calls ran,
+   derived from what they executed (encoder layers, captures, DTW calls,
+   int8 decode steps) and from the kernels the program calls itself;
+   kernels 1, 2, 3a, 3b, 4, 6 and 7 each launch in the phase. Then the
+   decode-step program's all-on stripped step against
+   ``whisper.decode_step``'s logits, bit for bit, over float K/V and
+   int8 K/V in each int8 mode. Logs each line with the card's name.
+7. Two gloo ranks on the one card, the device named (``cuda:0``): this
    script started again as ``chip_smoke.py --mesh-worker RANK 2 INIT JOB``
    (the kernels already built), medium width, 8 utterances, ground-truth
    transcripts. Tensor parallelism over 2 ranks and data parallelism over
@@ -141,7 +155,7 @@ Phases (any failure exits non-zero and prints no final line):
    model axis decodes eagerly, a data axis replays graphs. Per-rank wall
    and stages are printed ("gloo, one card": a check of function, no
    measure of NCCL).
-7. A JSON line of per-kernel numbers, then
+8. A JSON line of per-kernel numbers, then
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -1356,24 +1370,6 @@ def guarded_phase(model, tok, dataset, card: str) -> None:
         f"two decodes differ in {differ} rows")
 
 
-def step_floor(model, cross_kv, cache) -> tuple:
-    """(bytes, ms): what one decode step must read at least, each once: the
-    decoder's weights (the token embedding once, as the logits projection;
-    one row of the positions), the cross K/V (int8 codes and scales, or
-    float) and the self-attention cache, over the card's memory rate."""
-    dec = model.decoder
-    nbytes = sum(p.numel() * p.element_size()
-                 for name, p in dec.named_parameters()
-                 if name != "positional_embedding")
-    nbytes += dec.positional_embedding[0].numel() * \
-        dec.positional_embedding.element_size()
-    for c in cross_kv:
-        for t in (c if isinstance(c, tuple) else (c,)):
-            nbytes += t.numel() * t.element_size()
-    nbytes += sum(t.numel() * t.element_size() for t in cache.values())
-    return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
-
-
 def graph_phase(model, tok, dataset, card: str) -> dict:
     """Each decode mode of the main path on one batch of its encoder
     states, through the captured CUDA graph and through the eager loop on
@@ -1395,6 +1391,8 @@ def graph_phase(model, tok, dataset, card: str) -> dict:
     from whisper_char_alignment_tpu_torch.config import AlignConfig
     from whisper_char_alignment_tpu_torch.models import decode_graph, decoding
     from whisper_char_alignment_tpu_torch.runner import AlignmentPipeline
+    from whisper_char_alignment_tpu_torch.scripts.profile_decode_step import \
+        step_floor
     from whisper_char_alignment_tpu_torch.utils import profiling
 
     cfg = AlignConfig.recommended(model="medium", batch_size=BATCH,
@@ -1604,6 +1602,8 @@ def modes_phase(model, tok, dataset, card: str) -> dict:
     from whisper_char_alignment_tpu_torch.config import AlignConfig
     from whisper_char_alignment_tpu_torch.models import decode_graph, decoding
     from whisper_char_alignment_tpu_torch.runner import AlignmentPipeline
+    from whisper_char_alignment_tpu_torch.scripts.profile_decode_step import \
+        step_floor
     from whisper_char_alignment_tpu_torch.utils import profiling
 
     cfg = AlignConfig.recommended(model="medium", batch_size=BATCH,
@@ -3262,6 +3262,207 @@ def bench_phase(model, tok, card: str, device: str = "cuda") -> None:
         f"{time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the port's profiling programs
+# ---------------------------------------------------------------------------
+
+# each program at full Whisper-medium width at a cut batch, steps and
+# iterations: (module attributes, environment, argv or None). INT8_PALLAS and
+# PROF_INT8 put kernel 7 on the decode-step and pipeline paths
+PROFILE_RUNS = {
+    "profile_decode_step": (dict(B=8, STEPS=8), dict(INT8_PALLAS="1"), None),
+    "profile_guarded_decode": (dict(B=4, STEPS=8), {}, None),
+    "profile_beam_decode": (dict(B=2, STEPS=8), {}, None),
+    "profile_prefill": (dict(B=2, STEPS=4, PROMPT=32, ITERS=1), {}, None),
+    "profile_speculative": (dict(DECODE_LEN=16, KS=[2], REPS=1), {}, None),
+    "profile_encoder": (dict(B=2), {}, None),
+    "profile_kernels": ({}, {}, ["--batch", "2", "--iters", "2"]),
+    "profile_probe_dtw": ({}, {}, ["--iters", "2"]),
+    "profile_pipeline": ({}, dict(PROF_INT8="1"),
+                         ["--batch", "4", "--tokens", "32", "--decode_len",
+                          "8", "--iters", "1", "--reuse"]),
+    "profile_e2e_overheads": (dict(B=4, ITERS=1), {}, None),
+}
+# the spies' counters that the timed calls' launches follow
+SPIED = ("enc_layers", "captures", "dtw", "int8_steps")
+
+
+def profile_direct(name: str, dims, attrs: dict, argv) -> dict:
+    """The launches a program makes in its timed calls by calling kernel
+    wrappers itself, outside the functions the spies count: the
+    decode-step script's own graph (kernel 7 in its two int8-pallas
+    variants, 3 calls of STEPS replays each), the kernels and probe-DTW
+    scripts' direct calls, and the encoder script's layers (kernel 1 in
+    its five fused-attention variants, the int8 kernels 6 times a layer in
+    its two int8 variants; 5 calls each)."""
+    layers, text_layers = dims.n_audio_layer, dims.n_text_layer
+    iters = int(argv[argv.index("--iters") + 1]) if argv else None
+    if name == "profile_decode_step":
+        return {"cross_attn_int8": 2 * 3 * attrs["STEPS"] * text_layers}
+    if name == "profile_kernels":
+        return dict.fromkeys(("mel", "mel_clip", "encoder_attn",
+                              "encoder_attn_kt"), iters)
+    if name == "profile_probe_dtw":
+        # trace alone, trace + plain backtrace, the kernels, the chunk and
+        # the bf16 chunk; the backtrace kernel in the last three
+        return {"dtw_trace": 5 * iters, "dtw_backtrace": 3 * iters}
+    if name == "profile_encoder":
+        return {"encoder_attn": 5 * layers * 5,
+                "int8_quant": 2 * 6 * layers * 5,
+                "int8_dequant": 2 * 6 * layers * 5}
+    return {}
+
+
+@contextlib.contextmanager
+def profile_spies(log_: dict, timed_log: dict):
+    """:func:`bench_spies`, with each encoder run's layers counted (the
+    speculative decode encodes with its draft too), and the counters'
+    increments inside the programs' timed calls kept in ``timed_log``:
+    ``Readings.time`` makes its warm call here, outside the counted
+    window, then times as it does."""
+    from whisper_char_alignment_tpu_torch.models import whisper as wm
+    from whisper_char_alignment_tpu_torch.scripts import _profile
+
+    time_ = _profile.Readings.time
+    timed_log.update(dict.fromkeys(SPIED, 0))
+
+    def spied_time(self, name, fn, iters, warm=True, **kw):
+        if warm:
+            fn()
+        before = {k: log_[k] for k in SPIED}
+        out = time_(self, name, fn, iters, warm=False, **kw)
+        for k in SPIED:
+            timed_log[k] += log_[k] - before[k]
+        return out
+
+    with bench_spies(log_):
+        encode = wm.encode_audio
+        log_["enc_layers"] = 0
+
+        def counted(model, *a, **kw):
+            log_["enc_layers"] += len(model.encoder.blocks)
+            return encode(model, *a, **kw)
+
+        with patched(wm, encode_audio=counted), \
+                patched(_profile.Readings, time=spied_time):
+            yield
+
+
+def stripped_step_check(model, card: str) -> None:
+    """``profile_decode_step.step_logits``, the all-on stripped step, equal
+    to ``whisper.decode_step``'s logits bit for bit on the card, over float
+    K/V and over int8 K/V in each int8 mode (the kernel's included), at
+    Whisper-medium width, B=8, a position with earlier cache columns
+    filled."""
+    import torch
+
+    from whisper_char_alignment_tpu_torch.models import whisper as wm
+    from whisper_char_alignment_tpu_torch.scripts import profile_decode_step
+
+    dims = model.dims
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    xa = torch.randn((BATCH, dims.n_audio_ctx, dims.n_audio_state),
+                     generator=gen, device="cuda").to(model.dtype)
+    cache = wm.init_kv_cache(dims, BATCH, 40, dtype=model.dtype,
+                             device="cuda")
+    for t in cache.values():
+        t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
+    tok = torch.randint(0, dims.n_vocab, (BATCH,), generator=gen,
+                        device="cuda")
+    pos = torch.tensor([20], device="cuda")
+    kvs = {False: wm.precompute_cross_kv(model, xa)}
+    kvs[True] = wm.precompute_cross_kv(model, xa, quantize=True)
+    for impl, mode in profile_decode_step.CROSS_MODES.items():
+        kv = kvs[impl != "bf16"]
+        got = profile_decode_step.step_logits(model, tok, pos, cache, kv,
+                                              impl)
+        want, _ = wm.decode_step(model, tok[:, None], pos,
+                                 {k: v.clone() for k, v in cache.items()},
+                                 kv, cross_mode=mode)
+        check(torch.equal(got, want),
+              f"[profiling programs] the stripped step ({impl}) differs from "
+              f"decode_step: max abs diff "
+              f"{(got - want).abs().max().item():.3g}")
+    log(f"[profiling programs] the all-on stripped step equals decode_step's "
+        f"logits bit for bit on {card} (B={BATCH}, float K/V and int8 K/V "
+        f"through {', '.join(profile_decode_step.CROSS_MODES.values())})")
+
+
+def profile_phase(model, tok, card: str) -> None:
+    """The ten profiling programs (``scripts/profile_*.py``) at
+    Whisper-medium width, each ``main`` in process at a cut size
+    (:data:`PROFILE_RUNS`; a program that builds a model of the smoke
+    model's dims gets the smoke model), stdout captured: each must return,
+    print exactly one JSON line whose readings are positive and finite,
+    capture no graph in a timed call, and report launches equal to what
+    its timed calls ran (:func:`profile_spies`, :func:`profile_direct`).
+    Kernels 1, 2, 3a, 3b, 4, 6 and 7 must each launch in the phase. Then
+    the decode-step script's stripped step against ``decode_step``."""
+    import importlib
+    import io
+
+    import torch
+
+    from whisper_char_alignment_tpu_torch import bench
+    from whisper_char_alignment_tpu_torch.ops import _lib
+
+    t_phase = time.perf_counter()
+    dims = model.dims
+    seen = dict.fromkeys(_lib.LAUNCHES, 0)
+
+    def build(d, device):
+        return model if d == dims else bench.build_model(d, device)
+
+    for name, (attrs, env, argv) in PROFILE_RUNS.items():
+        mod = importlib.import_module(
+            f"whisper_char_alignment_tpu_torch.scripts.{name}")
+        log_, timed_log = {}, {}
+        out = io.StringIO()
+        builder = ({"build_model": build} if hasattr(mod, "build_model")
+                   else {})
+        t0 = time.perf_counter()
+        with profile_spies(log_, timed_log), patched(mod, **attrs, **builder), \
+                environ(WCA_CROSS_ATTN="auto", **env), \
+                contextlib.redirect_stdout(out):
+            _lib.reset_launches()
+            mod.main(argv) if argv is not None else mod.main()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        lines = [l for l in out.getvalue().splitlines() if l.strip()]
+        check(len(lines) == 1, f"[{name}] {len(lines)} stdout lines")
+        payload = json.loads(lines[0])
+        readings = payload["readings"]
+        check(readings and all(isinstance(v, (int, float)) and math.isfinite(v)
+                               and v > 0 for v in readings.values()),
+              f"[{name}] readings {readings}")
+        check(payload["graph_captures_timed"] == 0,
+              f"[{name}] {payload['graph_captures_timed']} graphs captured "
+              "in timed calls")
+        expect = dict.fromkeys(_lib.LAUNCHES, 0)
+        expect.update(encoder_attn=timed_log["enc_layers"],
+                      qkpost=dims.n_text_layer * timed_log["captures"],
+                      dtw_trace=timed_log["dtw"],
+                      dtw_backtrace=timed_log["dtw"],
+                      cross_attn_int8=dims.n_text_layer
+                      * timed_log["int8_steps"])
+        for k, v in profile_direct(name, dims, attrs, argv).items():
+            expect[k] += v
+        log(f"[{name}] timed launches {payload['launches']} (expected "
+            f"{expect}; timed: {timed_log})")
+        check(payload["launches"] == expect,
+              f"[{name}] launch counts differ from the timed calls' path")
+        for k, v in payload["launches"].items():
+            seen[k] += v
+        log(f"[{name}] on {card} in {seconds:.1f} s: {lines[0]}")
+    wanted = ("encoder_attn", "encoder_attn_kt", "qkpost", "dtw_trace",
+              "dtw_backtrace", "mel", "mel_clip", "cross_attn_int8")
+    check(all(seen[k] > 0 for k in wanted),
+          f"[profiling programs] a kernel never launched: {seen}")
+    stripped_step_check(model, card)
+    log(f"[profiling programs] phase done in "
+        f"{time.perf_counter() - t_phase:.1f} s; timed launches {seen}")
+
+
 def main_path_phase(card: str):
     import torch
 
@@ -3364,6 +3565,7 @@ def main_path_phase(card: str):
     log(f"tiny model CLI, card vs CPU: {tiny_cli_phase()}")
     cli_counts["long_form"] = long_form_phases(model, tok, card)
     bench_phase(model, tok, card)
+    profile_phase(model, tok, card)
     return counts, counts2, counts_int8, cli_counts, seen["dtw_inputs"]
 
 

@@ -285,11 +285,17 @@ def test_serve_latency_percentiles_match_numpy(n):
 
 
 def test_port_modules_import_nothing_of_jax():
-    """The programs' sources name neither JAX nor the JAX package."""
+    """The programs' sources (the benchmark and profiling programs) name
+    neither JAX nor the JAX package."""
     pkg = os.path.join(REPO, "whisper_char_alignment_tpu_torch")
+    profiles = ("decode_step", "guarded_decode", "beam_decode", "prefill",
+                "speculative", "encoder", "kernels", "probe_dtw", "pipeline",
+                "e2e_overheads")
     for rel in ("bench.py", "scripts/__init__.py", "scripts/bench_serve.py",
                 "scripts/bench_transcribe_longform.py",
-                "scripts/measure_latency.py", "scripts/bench_probe.py"):
+                "scripts/measure_latency.py", "scripts/bench_probe.py",
+                "scripts/_profile.py",
+                *(f"scripts/profile_{p}.py" for p in profiles)):
         src = open(os.path.join(pkg, rel)).read()
         assert "import jax" not in src and "from jax" not in src, rel
         assert "whisper_char_alignment_tpu." not in src.replace(
