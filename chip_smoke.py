@@ -155,7 +155,27 @@ Phases (any failure exits non-zero and prints no final line):
    model axis decodes eagerly, a data axis replays graphs. Per-rank wall
    and stages are printed ("gloo, one card": a check of function, no
    measure of NCCL).
-8. A JSON line of per-kernel numbers, then
+8. The asset-day programs (``scripts/calibrate_kv_guard``,
+   ``verify_kernels_on_device``, ``asset_gates``): the guard calibration in
+   process at Whisper-medium width through the real asset path (a bf16
+   ``.pt`` of medium with the toy vocabulary and a tokenizer directory from
+   ``rehearse_asset_day.make_assets``, read by the CLI loader), 16
+   utterances at batch 8, 32 steps, ``--mode int8`` then ``both``, each
+   with its keys and exact launch counts of kernels 1 and 7 (the int8
+   pass through kernel 7 in the decode graph), and after the int8 run the
+   guard's promise: ``decode`` guarded at the recommended margin gives
+   every utterance the exact decode's tokens. Then, in processes side by
+   side, ``verify_kernels_on_device`` at its JAX sizes (exit 0, a PASS
+   line a check, the launches of kernels 1, 2, 3a, 3b, 6 and 7 its checks
+   made), ``asset_gates --rehearse --only 2,2b,3,4,5,6`` (each gate a
+   process of the port on the card: rc 0 and a metrics line each) and,
+   where ``transformers`` and ``safetensors`` import, the runbook's gate 1,
+   ``rehearse_asset_day`` (the port's chain on the card against the HF
+   twin on the CPU: both utterances matched). Gate 7 needs
+   ``openai-whisper`` and the reference repository (logged). Logs the flip
+   rate, the recommended margin, the predicted flag rates, the
+   calibration's seconds and the phase's.
+9. A JSON line of per-kernel numbers, then
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -3817,6 +3837,277 @@ def mesh_phase(card: str, device: str = "cuda:0",
     log(f"[mesh] phase done in {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the asset-day programs
+# ---------------------------------------------------------------------------
+
+ASSET_UTTS = 16
+# the keys of calibrate()'s dict: the JAX script's line but ``source``
+# (its main adds that from its flags), and the three the port adds
+CALIBRATE_KEYS = {"metric", "mode", "recommended_guard_margin", "basis",
+                  "n_utts", "flip_rate_unguarded", "predicted_flag_rate",
+                  "predicted_flag_rate_at_default", "margin_percentiles",
+                  "deployable_hint", "cross_attn", "device", "launches"}
+# verify_kernels_on_device's launches: kernel 1 in the medium encoder's 24
+# layers, kernel 2 at widths 3 and 7, kernel 7 on two softmaxes, one DTW
+# call, one log-mel call
+VERIFY_LAUNCHES = {"encoder_attn": 24, "qkpost": 2, "cross_attn_int8": 2,
+                   "dtw_trace": 1, "dtw_backtrace": 1, "mel": 1,
+                   "mel_clip": 1}
+# the runbook's gates the phase runs through asset_gates (gate 1's command
+# runs as a process of its own beside it; gate 7 needs openai-whisper)
+RUNBOOK_GATES = ("2 TIMIT F1@50ms (recommended recipe)",
+                 "2b eval_ali re-score of gate 2's pkl at 0.1s",
+                 "3 TIMIT subword/mean recipe",
+                 "4 LibriSpeech vs Kaldi alignments", "5 probe_oracle sweep",
+                 "6 default whisper timing baseline")
+
+
+def child_env(device: str) -> dict:
+    """The environment of a program the phase starts: on the card unless
+    the phase runs on the CPU, no operator's assets."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WCA_PLATFORM", "WCA_CHECKPOINT", "WCA_TOKENIZER_DIR")}
+    if device == "cpu":
+        env["WCA_PLATFORM"] = "cpu"
+    return env
+
+
+def calibration_part(card: str, dims, device: str, work: str) -> None:
+    """``calibrate_kv_guard`` through the real asset path: a bf16 ``.pt`` of
+    ``dims`` and a tokenizer directory (``make_assets``), read back by the
+    CLI loader and cast to bf16 as the program's real path does; then
+    ``calibrate`` on 16 synthetic utterances at batch 8, decode_len 32,
+    ``--mode int8`` and ``--mode both``, each with exact launch counts
+    (kernel 1 a layer per encoder run, kernel 7 a decoder layer per int8
+    step the graph runner replayed or warmed up), its keys and n_utts.
+    The guard's promise after the int8 run: ``decode`` with
+    ``kv_int8_guard`` at the recommended margin gives every utterance the
+    exact decode's tokens (skipped, and logged, where the largest flipped
+    margin is 0: a tie no bound catches)."""
+    import argparse
+
+    import torch
+
+    from whisper_char_alignment_tpu_torch.cli import common
+    from whisper_char_alignment_tpu_torch.data.dataset import TIMIT
+    from whisper_char_alignment_tpu_torch.data.synthetic import \
+        make_timit_corpus
+    from whisper_char_alignment_tpu_torch.models import decoding
+    from whisper_char_alignment_tpu_torch.models import whisper as wm
+    from whisper_char_alignment_tpu_torch.ops import _lib
+    from whisper_char_alignment_tpu_torch.scripts import \
+        calibrate_kv_guard as cal
+    from whisper_char_alignment_tpu_torch.scripts import rehearse_asset_day
+
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    t0 = time.perf_counter()
+    assets = rehearse_asset_day.make_assets(
+        os.path.join(work, "assets"), dims, seed=0, formats=("pt",),
+        dtype=torch.bfloat16, device=dev)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ns = argparse.Namespace(model="medium", test_model=False,
+                            checkpoint=assets["pt"],
+                            tokenizer_dir=assets["tokenizer_dir"])
+    model, tok = common.load_model_and_tokenizer(ns, dev)
+    model = wm.cast_params(model, torch.bfloat16)
+    sync()
+    load_s = time.perf_counter() - t0
+    log(f"[asset day] the .pt (width {dims.n_audio_state}, bf16, toy "
+        f"vocabulary, "
+        f"{os.path.getsize(assets['pt']) / 1e9:.3f} GB) written in "
+        f"{write_s:.2f} s, read by the CLI loader in {load_s:.2f} s")
+    check(tok.n_vocab == model.dims.n_vocab == dims.n_vocab,
+          f"[asset day] tokenizer {tok.n_vocab} ids, model "
+          f"{model.dims.n_vocab}")
+    dataset = TIMIT(make_timit_corpus(os.path.join(work, "corpus"),
+                                      n_utts=ASSET_UTTS, seconds=(2.0, 5.0)))
+    measured = []
+    measure = cal.measure
+
+    def kept_measure(*a, **kw):
+        measured.append(measure(*a, **kw))
+        return measured[-1]
+
+    for mode in ("int8", "both"):
+        log_ = {}
+        _lib.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        with bench_spies(log_), patched(cal, measure=kept_measure), \
+                environ(WCA_CROSS_ATTN="auto"):
+            line = cal.calibrate(model, tok, dataset, mode=mode,
+                                 batch_size=BATCH, decode_len=DECODE_LEN)
+        sync()
+        wall = time.perf_counter() - t0
+        expect = bench_expected(dims, log_)
+        if dev.type == "cpu":  # a rehearsal: plain versions only
+            expect = dict.fromkeys(expect, 0)
+        log(f"[asset day] calibrate --mode {mode}: launches "
+            f"{line['launches']} (expected {expect}; {log_['encodes']} "
+            f"encoder runs, {log_['int8_steps']} int8 decode steps)")
+        check(line["launches"] == expect == _lib.launch_counts(),
+              f"[asset day] calibrate --mode {mode}: launch counts differ "
+              "from the path's")
+        # (the CPU runs the eager loop, which the graph runner's record
+        # does not see)
+        check((log_["int8_steps"] > 0 or dev.type == "cpu")
+              and log_["encodes"] == 2,
+              f"[asset day] calibrate --mode {mode}: {log_}")
+        missing = CALIBRATE_KEYS - set(line)
+        check(not missing, f"[asset day] calibrate lacks {sorted(missing)}")
+        check(line["n_utts"] == ASSET_UTTS and line["mode"] == mode,
+              f"[asset day] calibrate: {line['n_utts']} utterances")
+        check(line["cross_attn"] == ("kernel" if dev.type == "cuda"
+                                     else "xla"),
+              f"[asset day] the int8 pass ran {line['cross_attn']}")
+        flipped = [m for m, f in zip(measured[-1].margins,
+                                     measured[-1].flipped) if f]
+        log(f"[asset day] calibrate --mode {mode} on {card}, width "
+            f"{dims.n_audio_state}, {dims.n_audio_layer} + "
+            f"{dims.n_text_layer} layers, {ASSET_UTTS} utterances at batch "
+            f"{BATCH}, {DECODE_LEN} steps, bf16, in {wall:.2f} s: flip rate "
+            f"{line['flip_rate_unguarded']}, recommended margin "
+            f"{line['recommended_guard_margin']} ({line['basis']}; largest "
+            f"flipped margin {max(flipped, default=None)}), predicted flag "
+            f"rate {line['predicted_flag_rate']} (at the default "
+            f"{line['predicted_flag_rate_at_default']}), margin percentiles "
+            f"{line['margin_percentiles']}")
+        if mode != "int8":
+            continue
+        if flipped and max(flipped) <= 0.0:
+            log("[asset day] the largest flipped margin is 0: a tie no bound"
+                " catches; the guard's promise is not checked")
+            continue
+        bound = line["recommended_guard_margin"]
+        opts = cal.options(DECODE_LEN)
+        n_held = 0
+        with environ(WCA_CROSS_ATTN="auto"):
+            for _, n_live, mel in cal.padded_batches(model, dataset, BATCH):
+                exact = decoding.decode(model, tok, mel, opts, device=dev)
+                guarded = decoding.decode(model, tok, mel, opts, device=dev,
+                                          kv_int8=True, kv_int8_guard=bound)
+                n_held += sum(e.tokens == g.tokens for e, g in
+                              zip(exact[:n_live], guarded[:n_live]))
+        check(n_held == ASSET_UTTS, f"[asset day] the guard at {bound} gave "
+              f"{ASSET_UTTS - n_held} utterances other tokens than the exact "
+              "decode")
+        log(f"[asset day] the guard at the recommended {bound} gives all "
+            f"{ASSET_UTTS} utterances the exact decode's tokens")
+
+
+def verify_part(out: str, rc: int) -> None:
+    """``verify_kernels_on_device``'s output: exit 0, one PASS line a check
+    (two widths of kernel 2, kernel 7 and the ``mxu`` step on two
+    softmaxes), no FAIL, and a last line with the launches of kernels 1,
+    2, 3a, 3b, 6 and 7 the checks made."""
+    from whisper_char_alignment_tpu_torch.ops import _lib
+
+    lines = out.splitlines()
+    for line in lines:
+        log(f"[asset day] verify: {line}")
+    check(rc == 0, f"[asset day] verify_kernels_on_device exited {rc}")
+    check(sum(l.startswith("PASS  ") for l in lines) == 10
+          and not any(l.startswith("FAIL") for l in lines),
+          "[asset day] verify_kernels_on_device: PASS/FAIL lines")
+    payload = json.loads(lines[-1])
+    expect = dict.fromkeys(_lib.LAUNCHES, 0)
+    if payload["device"] != "cpu":
+        expect.update(VERIFY_LAUNCHES)
+    check(payload["launches"] == expect, f"[asset day] verify launches "
+          f"{payload['launches']}, expected {expect}")
+
+
+def runbook_part(board_path: str, rc: int) -> None:
+    """``asset_gates --rehearse --only 2,2b,3,4,5,6``: exit 0, and rc 0 and a
+    metrics dict for each of the six gates in its artifact."""
+    check(rc == 0, f"[asset day] asset_gates exited {rc}")
+    with open(board_path) as f:
+        board = json.load(f)
+    for gate in RUNBOOK_GATES:
+        check(board.get(gate, {}).get("rc") == 0
+              and board[gate].get("metrics"),
+              f"[asset day] gate {gate}: {board.get(gate)}")
+        log(f"[asset day] gate {gate}: {json.dumps(board[gate]['metrics'])}")
+
+
+def twin_part(out: str, rc: int) -> None:
+    """``rehearse_asset_day`` (the runbook's gate 1): the port's chain on
+    the card against the HF twin on the CPU, both on real-format files of
+    one random tiny model: exit 0, both utterances matched (zero word
+    mismatches, boundaries within 20 ms)."""
+    for line in out.splitlines():
+        if line.startswith(("format parity", "utt ", "rehearsal:", "FAIL")):
+            log(f"[asset day] twin: {line}")
+    check(rc == 0 and "rehearsal: 2/2 utterances matched" in out,
+          f"[asset day] rehearse_asset_day exited {rc}")
+
+
+def asset_day_phase(card: str, dims=None, device: str = "cuda") -> None:
+    """The asset-day programs on the card: the guard calibration in process
+    at Whisper-medium width (:func:`calibration_part`), then, side by side
+    in their own processes, ``verify_kernels_on_device`` at its JAX sizes
+    (:func:`verify_part`), the runbook's rehearsal of gates 2, 2b, 3, 4, 5
+    and 6, each gate a process of the port on the card
+    (:func:`runbook_part`), and gate 1's command, ``rehearse_asset_day``
+    (:func:`twin_part`), where ``transformers`` and ``safetensors`` import.
+    Gate 7 needs ``openai-whisper``; ``parity_vs_reference`` and
+    ``measure_cpu_baseline`` are held by the tests on the CPU."""
+    import importlib.util
+
+    from whisper_char_alignment_tpu_torch.scripts import rehearse_asset_day
+
+    t_phase = time.perf_counter()
+    dims = dims or rehearse_asset_day.rehearsal_dims(medium=True)
+    absent = [p for p in ("transformers", "safetensors", "whisper")
+              if importlib.util.find_spec(p) is None]
+    twin = not {"transformers", "safetensors"} & set(absent)
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="smoke_asset_day_",
+                                     dir=os.path.join(HERE, "build")) as d:
+        calibration_part(card, dims, device, d)
+        t0 = time.perf_counter()
+        board = os.path.join(d, "board.json")
+        package = "whisper_char_alignment_tpu_torch.scripts"
+        commands = {
+            "verify": [f"{package}.verify_kernels_on_device"],
+            "runbook": [f"{package}.asset_gates", "--rehearse", "--only",
+                        "2,2b,3,4,5,6", "--rehearse_dir",
+                        os.path.join(d, "gates"), "--artifact", board]}
+        if twin:
+            commands["twin"] = [f"{package}.rehearse_asset_day", "--out_dir",
+                                os.path.join(d, "twin")]
+        procs = {k: subprocess.Popen(
+            [sys.executable, "-m", *argv], cwd=HERE, env=child_env(device),
+            stdout=subprocess.PIPE, text=True,
+            stderr=subprocess.STDOUT if k == "twin" else None)
+            for k, argv in commands.items()}
+        try:
+            outs = {k: p.communicate(timeout=600)[0]
+                    for k, p in procs.items()}
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        verify_part(outs["verify"], procs["verify"].returncode)
+        for line in outs["runbook"].splitlines():
+            if line.startswith(("$ ", "=== ")):
+                log(f"[asset day] runbook: {line}")
+        runbook_part(board, procs["runbook"].returncode)
+        if twin:
+            twin_part(outs["twin"], procs["twin"].returncode)
+        log(f"[asset day] {', '.join(commands)} side by side on {card} in "
+            f"{time.perf_counter() - t0:.1f} s")
+    log(f"[asset day] packages absent here: {absent or 'none'}; "
+        f"{'gate 1 (the HF twin) ran as its own process; ' if twin else ''}"
+        f"not run: {'' if twin else 'gate 1 (needs transformers and safetensors), '}"
+        "gate 7 (needs openai-whisper and the reference repository)")
+    log(f"[asset day] phase done in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--mesh-worker"]:
         sys.path.insert(0, HERE)
@@ -3865,6 +4156,7 @@ def main() -> int:
     check(dtw_inputs is not None, "the default main path ran no DTW")
     dtw_main_shape(dtw_inputs)
     mesh_phase(card)
+    asset_day_phase(card)
     # each row's launches come from the run whose path holds its kernel: the
     # default run, the int8 + bucket run for the mel and cross-attention
     # kernels, the CLI's width-17 run for the QK post-process at 17, its

@@ -55,14 +55,15 @@ WCA_BENCH_MODEL (medium), WCA_BENCH_BASELINE (unset), WCA_BENCH_TINY=1
 (tiny dims, CPU-friendly).
 
 The other benchmark programs (``scripts/``) share this module's helpers:
-:func:`platform_device`, :func:`device_label`, :func:`build_model`,
-:func:`timed`, :func:`log`.
+:func:`platform_device`, :func:`require_package`, :func:`device_label`,
+:func:`build_model`, :func:`timed`, :func:`log`.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib.util
 import json
 import os
 import subprocess
@@ -111,6 +112,17 @@ def platform_device() -> torch.device:
         return common.apply_platform_env()
     except RuntimeError as e:
         raise SystemExit(f"error: {e}") from e
+
+
+def require_package(module: str, package: str, program: str,
+                    why: str) -> None:
+    """Exit 2 with one line naming ``package`` when ``module`` cannot be
+    imported: a program that needs an optional package never runs a lesser
+    version of itself."""
+    if importlib.util.find_spec(module) is None:
+        print(f"{program}: needs the '{package}' package ({why}), which is "
+              "not installed", file=sys.stderr, flush=True)
+        raise SystemExit(2)
 
 
 def device_label(device: torch.device) -> str:
