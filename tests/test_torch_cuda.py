@@ -10,9 +10,11 @@ import torch
 
 from whisper_char_alignment_tpu_torch.models import whisper as tw
 from whisper_char_alignment_tpu_torch.ops import (_lib, cross_attn_cuda,
-                                                  dtw_cuda, encoder_attn_cuda,
+                                                  dec_attn_cuda, dtw_cuda,
+                                                  encoder_attn_cuda,
                                                   int8_cuda, mel_cuda,
-                                                  qkpost_cuda)
+                                                  qkpost_cuda,
+                                                  rows_linear_cuda)
 
 pytestmark = pytest.mark.gpu
 
@@ -526,6 +528,10 @@ def test_graphed_transcribe_equals_the_eager_loops(cuda, aggr, monkeypatch):
                                                    + len(captures)),
                 qkpost=dims.n_text_layer * len(captures),
                 dtw_trace=len(captures), dtw_backtrace=len(captures))
+    # the decoder's attention and linears run in every decode and capture
+    assert counts["dec_attn"] > 0 and counts["rows_linear"] > 0
+    want.update(dec_attn=counts["dec_attn"],
+                rows_linear=counts["rows_linear"])
     assert counts == want
     assert requests[0] == "detect" and len(captures) >= 1
     assert record["captures"] >= 2 and record["replays"] > 0
@@ -541,8 +547,8 @@ def test_graphed_transcribe_equals_the_eager_loops(cuda, aggr, monkeypatch):
 def test_transcribe_batched_equals_solo_on_the_card(cuda):
     """``transcribe_batched`` of three audios (one batched decode of 4 rows
     a round) against each audio's solo ``transcribe`` on the card: tokens,
-    texts and times equal, float fields within 1e-5 (the batched decode's
-    matrix products run at another row count)."""
+    texts, times and float fields equal, bit for bit (the decoder's rows do
+    not depend on the batch: ``dec_attn``, ``rows_linear``)."""
     from whisper_char_alignment_tpu_torch import transcribe as T
 
     tok, model, _ = _tiny_decoder_model(cuda, 9)
@@ -560,7 +566,7 @@ def test_transcribe_batched_equals_solo_on_the_card(cuda):
                       "temperature"):
                 assert x[k] == y[k], k
             for k in ("avg_logprob", "compression_ratio", "no_speech_prob"):
-                assert x[k] == pytest.approx(y[k], abs=1e-5), k
+                assert x[k] == y[k], k
 
 
 def test_serve_round_trip_on_the_card(cuda, tmp_path):
@@ -705,11 +711,13 @@ def test_int8_encoder_on_the_card(cuda, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_forward_and_qk_to_attention_on_the_card(cuda, dtype):
-    """``forward`` launches the encoder kernel once a layer and the QK
-    post-process never; ``qk_to_attention`` of its raw QK launches the
-    post-process once a layer, equal to its plain version on the same QK
-    within 1e-6, and equal, bit for bit, to ``decode_text``'s in-layer
-    post-process on the same tokens and encoder states."""
+    """``forward`` launches the encoder kernel once a layer, the decoder's
+    attention twice a layer, its linears ten times a layer and once for the
+    lm head, and the QK post-process never; ``qk_to_attention`` of its raw
+    QK launches the post-process once a layer, equal to its plain version
+    on the same QK within 1e-6, and equal, bit for bit, to
+    ``decode_text``'s in-layer post-process on the same tokens and encoder
+    states."""
     from whisper_char_alignment_tpu_torch.config import tiny_test_dims
 
     dims = tiny_test_dims(n_vocab=64, n_audio_ctx=64, n_text_ctx=16,
@@ -727,7 +735,10 @@ def test_forward_and_qk_to_attention_on_the_card(cuda, dtype):
     logits, qk = tw.forward(model, mel, tokens)
     counts = _lib.launch_counts()
     assert counts["encoder_attn"] == dims.n_audio_layer
-    assert sum(counts.values()) == dims.n_audio_layer
+    assert counts["dec_attn"] == 2 * dims.n_text_layer
+    assert counts["rows_linear"] == 10 * dims.n_text_layer + 1
+    assert sum(counts.values()) == (dims.n_audio_layer
+                                    + 12 * dims.n_text_layer + 1)
     assert logits.dtype == qk.dtype == torch.float32
     attn = [tw.qk_to_attention(qk[i], frame_len, token_len, 7, 1.3)
             for i in range(dims.n_text_layer)]
@@ -762,3 +773,263 @@ def test_a_pipeline_on_the_card_keeps_the_callers_model(cuda):
     assert AlignmentPipeline(model, tok, AlignConfig()).model is model
     copy = tw.cast_params(model, torch.bfloat16, "cuda")
     assert copy is not model and copy.device == model.device
+
+
+# -- the decoder's row-invariant kernels --------------------------------------
+
+def _bits_equal(a, b) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.int16 if a.element_size() == 2
+                            else torch.int32),
+        b.contiguous().view(torch.int16 if b.element_size() == 2
+                            else torch.int32))
+
+
+def _attn_inputs(cuda, b, h, p, s, hd, kv_dtype, dtype, layout, seed):
+    """q (B, H, P, hd) in the compute dtype; K/V (B, H, hd, S) as the cache
+    stores them ("cache") or transposed views of (B, H, S, hd) projections
+    ("proj", ``_qkv_attention``'s); the position mask of P rows ending 3
+    columns before S (causal from 0 when P is within 3 of S)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = (torch.randn((b, p, h, hd), generator=g, device=cuda)
+         * hd ** -0.25).to(dtype).transpose(1, 2)
+    if layout == "cache":
+        k, v = (torch.randn((b, h, hd, s), generator=g, device=cuda)
+                .to(kv_dtype) for _ in range(2))
+    else:
+        k, v = (torch.randn((b, h, s, hd), generator=g, device=cuda)
+                .to(kv_dtype).transpose(-1, -2) for _ in range(2))
+    start = max(0, s - 3 - p)
+    mask = tw._position_mask(torch.arange(start, start + p, device=cuda), s)
+    return q, k, v, mask
+
+
+@pytest.mark.parametrize("dtype,kv_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32)])
+@pytest.mark.parametrize("b,h,p,s,hd,layout,masked,scaled", [
+    (8, 16, 1, 448, 64, "cache", True, True),
+    (8, 16, 5, 448, 64, "cache", True, True),
+    (8, 16, 1, 1500, 64, "cache", False, True),
+    (2, 4, 37, 1500, 64, "proj", False, False),
+    (2, 4, 37, 37, 64, "proj", True, False),
+    (1, 2, 9, 131, 16, "cache", True, True),
+    (1, 2, 3, 300, 128, "cache", True, True),
+    (1, 2, 4, 64, 8, "cache", True, True)])
+def test_dec_attn_kernel(cuda, dtype, kv_dtype, b, h, p, s, hd, layout,
+                         masked, scaled):
+    """The decoder attention against its plain version (the port's
+    ``_attend``) on the card: f32 scores within 1e-5 (sums over hd in
+    another order); the output within 2e-5 in float32 and 2e-2 in bf16 (a
+    weight's bf16 rounding can fall the other way)."""
+    q, k, v, mask = _attn_inputs(cuda, b, h, p, s, hd, kv_dtype, dtype,
+                                 layout, b * p + s + hd)
+    mask = mask if masked else None
+    scale = hd ** -0.25 if scaled else None
+    before = _lib.launch_counts()["dec_attn"]
+    got, sc = dec_attn_cuda.dec_attn(q, k, v, dtype=dtype, mask=mask,
+                                     k_scale=scale, scores=True)
+    assert _lib.launch_counts()["dec_attn"] == before + 1
+    want, want_sc = dec_attn_cuda.dec_attn_plain(q, k, v, dtype=dtype,
+                                                 mask=mask, k_scale=scale)
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(sc, want_sc, rtol=1e-5, atol=1e-5)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    no_scores = dec_attn_cuda.dec_attn(q, k, v, dtype=dtype, mask=mask,
+                                       k_scale=scale)
+    assert no_scores[1] is None and _bits_equal(no_scores[0], got)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("p", [1, 5])
+@pytest.mark.parametrize("m", [1, 2, 5, 8, 16, 40])
+def test_dec_attn_rows_do_not_depend_on_their_neighbours(cuda, dtype, p, m):
+    """Row invariance, bit for bit: each item of a batch of ``m`` equals
+    the same item alone; each of ``p`` query rows equals that row alone;
+    and a row over a longer cache (more columns masked) equals it over the
+    shorter one. Eager and inside a captured CUDA graph."""
+    h, s, hd = 4, 96, 64
+    q, k, v, mask = _attn_inputs(cuda, m, h, p, s, hd, dtype, dtype, "cache",
+                                 m * 10 + p)
+
+    def run(qq, kk, vv, mm):
+        return dec_attn_cuda.dec_attn(qq, kk, vv, dtype=dtype, mask=mm,
+                                      k_scale=hd ** -0.25, scores=True)
+
+    full, full_sc = run(q, k, v, mask)
+    for i in {0, m - 1}:
+        one, one_sc = run(q[i:i + 1], k[i:i + 1], v[i:i + 1], mask)
+        assert _bits_equal(one, full[i:i + 1])
+        assert _bits_equal(one_sc, full_sc[i:i + 1])
+    for r in range(p):
+        row, _ = run(q[:, :, r:r + 1], k, v, mask[r:r + 1])
+        assert _bits_equal(row, full[:, :, r:r + 1])
+    # 40 more cache columns, never visible
+    pad = lambda t: torch.cat([t, torch.randn_like(t[..., :40])], dim=-1)
+    longer = torch.cat([mask, torch.full_like(mask[:, :40], float("-inf"))],
+                       dim=-1)
+    wide, _ = run(q, pad(k), pad(v), longer)
+    assert _bits_equal(wide, full)
+    static = [t.clone() for t in (q, k, v, mask)]
+    out = {}
+
+    def body():
+        out["o"], out["s"] = run(*static)
+
+    body()  # first use outside the capture
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        body()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert _bits_equal(out["o"], full) and _bits_equal(out["s"], full_sc)
+
+
+_LINEAR_SHAPES = [(1024, 1024), (4096, 1024), (1024, 4096), (5003, 1024),
+                  (96, 32), (40, 16)]
+
+
+@pytest.mark.parametrize("dtype,out_dtype,tol", [
+    (torch.bfloat16, None, 1e-2), (torch.bfloat16, torch.float32, 1e-4),
+    (torch.float32, None, 1e-5)])
+@pytest.mark.parametrize("n,k", _LINEAR_SHAPES)
+@pytest.mark.parametrize("m", [1, 7, 16, 40, 300])
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_rows_linear_kernel(cuda, dtype, out_dtype, tol, n, k, m, with_bias):
+    """The linear against ``F.linear`` (its plain version) on the card:
+    bf16 outputs within one bf16 rounding (1e-2 of the row's largest),
+    the lm head's f32 outputs from bf16 rows within 1e-4, f32 within 1e-5
+    (sums over K in another order)."""
+    if out_dtype is not None and with_bias:
+        pytest.skip("the lm head has no bias")
+    g = torch.Generator(device=cuda).manual_seed(m * 7 + n + k)
+    x = torch.randn((m, k), generator=g, device=cuda).to(dtype)
+    w = (torch.randn((n, k), generator=g, device=cuda) * k ** -0.5).to(dtype)
+    bias = (torch.randn((n,), generator=g, device=cuda).to(dtype)
+            if with_bias else None)
+    before = _lib.launch_counts()["rows_linear"]
+    got = rows_linear_cuda.rows_linear(x, w, bias, out_dtype=out_dtype)
+    assert _lib.launch_counts()["rows_linear"] == before + 1
+    want = rows_linear_cuda.rows_linear_plain(x, w, bias, out_dtype)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    scale = want.float().abs().amax(dim=-1, keepdim=True).clamp_min(1e-3)
+    err = ((got.float() - want.float()).abs() / scale).max().item()
+    assert err <= tol, err
+
+
+@pytest.mark.parametrize("dtype,out_dtype", [
+    (torch.bfloat16, None), (torch.bfloat16, torch.float32),
+    (torch.float32, None)])
+@pytest.mark.parametrize("n,k", _LINEAR_SHAPES)
+def test_rows_linear_rows_do_not_depend_on_their_neighbours(cuda, dtype,
+                                                            out_dtype, n, k):
+    """Row invariance, bit for bit: rows 0 and M-1 of an M-row call equal
+    the same rows alone at M in {1, 2, 5, 8, 16, 40} and at 300 and 1500
+    rows (where one block walks every segment instead of one block a
+    segment), eager and inside a captured CUDA graph."""
+    g = torch.Generator(device=cuda).manual_seed(n + k)
+    x = torch.randn((1500, k), generator=g, device=cuda).to(dtype)
+    w = (torch.randn((n, k), generator=g, device=cuda) * k ** -0.5).to(dtype)
+    bias = (None if out_dtype is not None else
+            torch.randn((n,), generator=g, device=cuda).to(dtype))
+
+    def run(rows):
+        return rows_linear_cuda.rows_linear(rows, w, bias, out_dtype=out_dtype)
+
+    alone = {i: run(x[i:i + 1]) for i in range(40)}
+    alone[299], alone[1499] = run(x[299:300]), run(x[1499:1500])
+    for m in (1, 2, 5, 8, 16, 40, 300, 1500):
+        y = run(x[:m])
+        for i in {0, m - 1}:
+            assert _bits_equal(y[i:i + 1], alone[i]), (m, i)
+    static = x[:5].clone()
+    out = {}
+    out["y"] = run(static)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out["y"] = run(static)
+    graph.replay()
+    graph.replay()  # the tile tickets are ready again after each launch
+    torch.cuda.synchronize()
+    for i in range(5):
+        assert _bits_equal(out["y"][i:i + 1], alone[i])
+
+
+def test_rows_linear_and_dec_attn_refuse_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros((2, 12), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        rows_linear_cuda.rows_linear(x, torch.zeros((4, 12), device=cuda,
+                                                    dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="share"):
+        rows_linear_cuda.rows_linear(x[:, :8], torch.zeros((4, 8),
+                                                           device=cuda))
+    q = torch.zeros((1, 2, 1, 12), device=cuda)
+    kv = torch.zeros((1, 2, 12, 5), device=cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        dec_attn_cuda.dec_attn(q, kv, kv, dtype=torch.float32)
+    q, kv = q[..., :8], kv[:, :, :8]
+    with pytest.raises(ValueError, match="compute dtype"):
+        dec_attn_cuda.dec_attn(q, kv.to(torch.bfloat16),
+                               kv.to(torch.bfloat16), dtype=torch.float32)
+
+
+def test_the_decoder_and_the_audio_side_keep_each_row(cuda):
+    """``scripts/diagnose_rows`` on a small bf16 model (two layers of
+    Whisper's head width, 1500 frames): every op of every case bit-equal,
+    and every suspect op held on its own bit-equal."""
+    from whisper_char_alignment_tpu_torch.config import tiny_test_dims
+    from whisper_char_alignment_tpu_torch.scripts import diagnose_rows
+
+    dims = tiny_test_dims(n_vocab=1000, n_audio_ctx=1500, n_text_ctx=64,
+                          state=256, head=4, layers=2)
+    model = tw.init_params(
+        tw.Whisper(dims, device=cuda, dtype=torch.bfloat16),
+        torch.Generator(device=cuda).manual_seed(0))
+    result = diagnose_rows.diagnose(model)
+    for name, table in result["cases"].items():
+        assert diagnose_rows.first_difference(table) is None, (
+            name, diagnose_rows.first_difference(table))
+    for row in result["suspects"]:
+        assert row["bit_equal"], row
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_speculative_decode_equals_greedy_on_the_card(cuda, dtype):
+    """``decode_speculative`` (draft_k 4) equals greedy ``decode`` on the
+    card, bit for bit: tokens, logprobs and no-speech probabilities, in
+    bf16 and f32, with a smaller draft."""
+    from whisper_char_alignment_tpu_torch.models import decoding
+
+    tok, model, mel = _tiny_decoder_model(cuda, 6)
+    _, draft, _ = _tiny_decoder_model(cuda, 7, state=64, layers=1)
+    model, draft = (tw.cast_params(m, dtype) for m in (model, draft))
+    o = decoding.DecodingOptions(language="en", sample_len=24)
+    for i in range(2):
+        greedy = decoding.decode(model, tok, mel[i], o)
+        spec = decoding.decode_speculative(model, draft, tok, mel[i], o,
+                                           draft_k=4)
+        assert (spec.tokens, spec.text) == (greedy.tokens, greedy.text)
+        assert spec.avg_logprob == greedy.avg_logprob
+        assert spec.no_speech_prob == greedy.no_speech_prob
+
+
+@pytest.mark.parametrize("rows", [2, 8, 16, 40])
+def test_vocabulary_reductions_run_every_row_alike(cuda, rows):
+    """The decode loops' reductions over the vocabulary on the card
+    (``decoding.vocab_logsumexp``, ``vocab_softmax``, ``vocab_log_softmax``)
+    over (rows, 51865) float32 logits (a row starts 4 bytes further each
+    row): each row equals, bit for bit, the same row in a buffer of its own
+    (as a solo run holds it), and the library's reductions of the rows as
+    they lie within 2e-6 (only the sum order moves)."""
+    from whisper_char_alignment_tpu_torch.models import decoding
+
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    lg = torch.randn((rows, 51865), generator=g, device=cuda) * 4
+    for fn, lib in ((decoding.vocab_logsumexp, torch.logsumexp),
+                    (decoding.vocab_softmax, torch.softmax),
+                    (decoding.vocab_log_softmax, torch.log_softmax)):
+        full = fn(lg)
+        for i in {0, 1, rows - 1}:
+            assert _bits_equal(fn(lg[i:i + 1].clone()), full[i:i + 1])
+        torch.testing.assert_close(full, lib(lg, dim=-1), rtol=2e-6,
+                                   atol=2e-6)

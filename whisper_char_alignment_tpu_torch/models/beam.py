@@ -160,7 +160,7 @@ def _group_setup(model, xa: torch.Tensor, prompt: np.ndarray,
             model, prompt_t[:, :spec.sample_begin - 1], cache, cross_kv,
             logits_at=ns_at, cross_mode="xla")
         if ns_at is not None:
-            ns_prob = torch.softmax(pf_logits, dim=-1)[:, spec.no_speech]
+            ns_prob = decoding.vocab_softmax(pf_logits)[:, spec.no_speech]
     cache = {k: v.repeat_interleave(g, dim=1) for k, v in cache.items()}
     cross_kv = tuple(c.repeat_interleave(g, dim=1) for c in cross_kv)
     tokens = torch.full((b * g, spec.total), spec.eot, dtype=torch.long,
@@ -175,7 +175,7 @@ def _probe_no_speech(st, logits, active, spec: GroupSpec) -> torch.Tensor:
     if spec.no_speech is None:
         return st.ns_prob
     return torch.where(active & (st.i == spec.sot_index + 1),
-                       torch.softmax(logits, dim=-1)[:, spec.no_speech],
+                       decoding.vocab_softmax(logits)[:, spec.no_speech],
                        st.ns_prob)
 
 
@@ -250,7 +250,7 @@ def beam_step_(model, st: BeamState, cross_kv, spec: GroupSpec) -> None:
                                    pos_in, st.cache, cross_kv,
                                    cross_mode="xla")
     ns_prob = _probe_no_speech(st, logits, active, spec)
-    logprobs = torch.log_softmax(_filters(st, logits, spec).float(), dim=-1)
+    logprobs = decoding.vocab_log_softmax(_filters(st, logits, spec).float())
     lp_k, tok_k = _top_k(logprobs, g + 1)  # (rows, g+1)
     cand_lp = (st.sum_lp[:, None] + lp_k).reshape(b, c)
     cand_tok = tok_k.reshape(b, c)
@@ -408,7 +408,7 @@ def sample_step_(model, st: SampleState, cross_kv, spec: GroupSpec,
     # jax.random.categorical: argmax(gumbel + logits / temperature)
     sampled = (st.noise[slot] + filtered / st.temperature).argmax(dim=-1)
     chosen = filtered.gather(1, sampled[:, None])[:, 0]
-    chosen_lp = chosen - torch.logsumexp(filtered, dim=-1)
+    chosen_lp = chosen - decoding.vocab_logsumexp(filtered)
     finished = st.finished
     next_tok = torch.where(finished, spec.eot, sampled)
     sum_lp = torch.where(finished, st.sum_lp, st.sum_lp + chosen_lp)

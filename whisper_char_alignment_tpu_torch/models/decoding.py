@@ -145,6 +145,44 @@ def _get_suppress_tokens(tokenizer, options: DecodingOptions) -> Tuple[int, ...]
     return tuple(sorted(set(suppress)))
 
 
+# The decode loops' reductions over the vocabulary, each row computed on a
+# card as if it were alone. PyTorch's softmax kernels run a block a row,
+# sized by the row's length, but peel a row's unaligned head first, and a
+# (B, 51865) float32 row starts 4 bytes further each row: the rows go to a
+# fresh buffer rounded up to 4 columns, padded with -inf (exp(-inf) adds
+# exact zeros). The reduction kernel behind logsumexp splits a row by how
+# many rows there are, so logsumexp is read off log_softmax instead. On
+# the CPU each is the plain PyTorch call.
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    b, v = x.shape
+    out = x.new_full((b, v + (-v % 4)), float("-inf"))
+    out[:, :v] = x
+    return out
+
+
+def vocab_softmax(x: torch.Tensor) -> torch.Tensor:
+    """softmax over the last axis of (B, V) rows."""
+    if x.device.type != "cuda":
+        return torch.softmax(x, dim=-1)
+    return torch.softmax(_aligned(x), dim=-1)[:, :x.shape[1]]
+
+
+def vocab_log_softmax(x: torch.Tensor) -> torch.Tensor:
+    """log_softmax over the last axis of (B, V) rows."""
+    if x.device.type != "cuda":
+        return torch.log_softmax(x, dim=-1)
+    return torch.log_softmax(_aligned(x), dim=-1)[:, :x.shape[1]]
+
+
+def vocab_logsumexp(x: torch.Tensor) -> torch.Tensor:
+    """logsumexp over the last axis of (B, V) rows: on a card max(x) minus
+    the max of log_softmax(x) (each x - max - log sum exp)."""
+    if x.device.type != "cuda":
+        return torch.logsumexp(x, dim=-1)
+    return x.amax(dim=-1) - vocab_log_softmax(x).amax(dim=-1)
+
+
 def apply_logit_filters(logits: torch.Tensor, cur_len,
                         tokens: torch.Tensor, has_ts: torch.Tensor,
                         last_ts_tok: torch.Tensor, suppress_mask: torch.Tensor,
@@ -188,7 +226,7 @@ def apply_logit_filters(logits: torch.Tensor, cur_len,
     logits = logits.masked_fill(kill, _NEG_INF)
     # prefer timestamps when their total probability dominates any text
     # token (raw-logit reductions: the shared log-softmax normalizer cancels)
-    ts_lp = torch.logsumexp(logits[:, ts_begin:], dim=-1)
+    ts_lp = vocab_logsumexp(logits[:, ts_begin:])
     max_text_lp = logits[:, :ts_begin].amax(dim=-1)
     kill_text_all = ((ts_lp > max_text_lp)[:, None]
                      & (vocab_ids < ts_begin)[None])
@@ -486,7 +524,7 @@ def loop_setup(model, xa: torch.Tensor, prompt: np.ndarray,
             model, tokens[:, :spec.sample_begin - 1], cache, cross_kv,
             logits_at=ns_at, cross_mode=spec.cross_mode)
         if ns_at is not None:
-            ns_prob = torch.softmax(pf_logits, dim=-1)[:, spec.no_speech]
+            ns_prob = vocab_softmax(pf_logits)[:, spec.no_speech]
     state = LoopState(
         tokens=tokens, cache=cache,
         i=torch.full((1,), spec.sample_begin, dtype=torch.long, device=dev),
@@ -518,7 +556,7 @@ def loop_step_(model, st: LoopState, cross_kv, spec: LoopSpec) -> None:
     if spec.no_speech is not None:
         # the no-speech probe right after sot, a select (JAX's lax.cond)
         ns_prob = torch.where(active & (st.i == spec.sot_index + 1),
-                              torch.softmax(logits, dim=-1)[:, spec.no_speech],
+                              vocab_softmax(logits)[:, spec.no_speech],
                               ns_prob)
     filtered = apply_logit_filters(
         logits, st.i, st.tokens, st.has_ts, st.last_ts_tok, st.suppress_mask,
@@ -541,7 +579,7 @@ def loop_step_(model, st: LoopState, cross_kv, spec: LoopSpec) -> None:
         min_margin = torch.where(finished, min_margin,
                                  torch.minimum(min_margin, top1 - second))
     # greedy picks the max: its log-softmax value is max - logsumexp
-    chosen_lp = top1 - torch.logsumexp(filtered, dim=-1)
+    chosen_lp = top1 - vocab_logsumexp(filtered)
     next_tok = torch.where(finished, spec.eot, next_sampled)
     sum_lp = torch.where(finished, st.sum_lp, st.sum_lp + chosen_lp)
     sampled_ts = ~finished & (next_tok >= spec.ts_begin)
@@ -837,7 +875,7 @@ def detect_language(model, tokenizer, mel: Optional[torch.Tensor] = None,
     logits, _ = wmodel.decode_step(model, sot, 0, cache, cross_kv)
     lang_logits = logits.index_select(1, torch.tensor(
         tokenizer.all_language_tokens, dtype=torch.long, device=dev))
-    probs = torch.softmax(lang_logits, dim=-1).cpu().numpy()
+    probs = vocab_softmax(lang_logits).cpu().numpy()
     idx = lang_logits.argmax(dim=-1).cpu().numpy()
     codes = tokenizer.all_language_codes
     out = [(codes[i], {c: float(probs[r, j]) for j, c in enumerate(codes)})
@@ -929,7 +967,7 @@ def speculative_setup(model, draft, xa: torch.Tensor, xa_d: torch.Tensor,
         wmodel.decode_prefill(draft, tokens[:, :spec.sample_begin - 1],
                               cache_d, cross_d, cross_mode="xla")
         if ns_at is not None:
-            ns_prob = torch.softmax(pf_logits, dim=-1)[:, spec.no_speech]
+            ns_prob = vocab_softmax(pf_logits)[:, spec.no_speech]
     zero = torch.zeros(1, dtype=torch.long, device=dev)
     state = SpeculativeState(
         tokens=tokens, cache_t=cache_t, cache_d=cache_d,
@@ -995,7 +1033,7 @@ def speculative_round_(model, draft, st: SpeculativeState, kv,
     if spec.no_speech is not None:
         ns_prob = torch.where(
             active & (st.L == spec.sot_index + 1),
-            torch.softmax(logits_w[:, 0], dim=-1)[:, spec.no_speech],
+            vocab_softmax(logits_w[:, 0])[:, spec.no_speech],
             ns_prob)
     # the target's own greedy choice at each window position, teacher-forced
     # along the drafted prefix
@@ -1011,7 +1049,7 @@ def speculative_round_(model, draft, st: SpeculativeState, kv,
         s_last = torch.where(is_ts, gj, s_last)
         g.append(gj)
         match.append(gj == d_tok)
-        lp.append(f.amax(dim=-1) - torch.logsumexp(f, dim=-1))
+        lp.append(f.amax(dim=-1) - vocab_logsumexp(f))
         hs.append(s_has)
         ls.append(s_last)
     g, match, lp = torch.cat(g), torch.cat(match), torch.cat(lp)
@@ -1032,7 +1070,12 @@ def speculative_round_(model, draft, st: SpeculativeState, kv,
         active, g.index_select(0, e), st.tokens.index_select(1, at)[:, 0]
     )[:, None])
     last = (c - 1).clamp(min=0)  # c >= 1 in an active round
-    sum_lp = st.sum_lp + torch.where(idx < c, lp, 0.0).sum()
+    # the committed tokens' logprobs added one at a time, in the order and
+    # the float sums of greedy's steps (a round's sum added at once would
+    # round differently)
+    sum_lp = st.sum_lp
+    for jj in range(k + 1):
+        sum_lp = torch.where(jj < c, sum_lp + lp[jj], sum_lp)
     for old, new in ((st.finished, finished), (st.sum_lp, sum_lp),
                      (st.has_ts, hs.index_select(0, last)),
                      (st.last_ts_tok, ls.index_select(0, last)),
@@ -1088,8 +1131,10 @@ def decode_speculative(model, draft, tokenizer, mel: torch.Tensor,
     the tokenizer) proposes ``draft_k`` tokens a round, the target verifies
     them in one :func:`whisper.decode_window` pass and commits the longest
     prefix that matches its own greedy choices, plus one token of its own.
-    The transcript is greedy's but for the float order of a window's
-    products against a step's (a near-tie may flip).
+    The result is greedy's, bit for bit: tokens, logprobs and no-speech
+    probability (on a card the window's rows are computed as a step's by
+    ``dec_attn`` and ``rows_linear``; the committed logprobs are added one
+    at a time, as greedy adds them).
 
     One utterance (mel (n_mels, F) or (1, n_mels, F)), greedy options only.
     On a CUDA model the rounds replay a captured CUDA graph.

@@ -17,6 +17,15 @@ Math parity notes (vs whisper.model and the JAX package):
   softmax and P v are computed in float32 (the JAX package's
   ``preferred_element_type=float32``), probabilities cast to the compute
   dtype before P v;
+- on a card every row of the decoder is computed in bits that do not
+  depend on the rows beside it (the batch, a speculative window, a prompt,
+  a padded transcript), as the JAX package's bit-identity promises need:
+  the decoder's attention runs through ``ops/dec_attn_cuda.py`` and its
+  float linears and lm head through ``ops/rows_linear_cuda.py``, both
+  summing in orders fixed by the layer's shape alone; the encoder runs its
+  convolutions and linears one utterance a call
+  (``utils/device.per_utterance``), so the library picks one kernel
+  whatever the batch. On the CPU each is the plain PyTorch call it was;
 - GELU is the exact erf form; LayerNorm eps 1e-5, computed in float32; the
   key projection has no bias; logits are tied to the token embedding.
 - the encoder self-attention runs through the CUDA kernel of
@@ -57,8 +66,11 @@ from torch import nn
 from ..config import ModelDims
 from ..ops import int8_cuda
 from ..ops.cross_attn_cuda import cross_attn_step_int8
+from ..ops.dec_attn_cuda import attend_plain, dec_attn
 from ..ops.encoder_attn_cuda import encoder_self_attention
 from ..ops.qkpost_cuda import qk_postprocess
+from ..ops.rows_linear_cuda import rows_linear
+from ..utils import device as _device
 from ..utils.device import resolve_device
 
 Cache = Dict[str, torch.Tensor]
@@ -302,7 +314,16 @@ def _linear(lin: nn.Module, x: torch.Tensor) -> torch.Tensor:
         return _linear_int8(lin, x)
     if isinstance(lin, SplitLinear):
         return _split_linear(lin, x)
-    return F.linear(x, lin.weight, lin.bias)
+    return rows_linear(x, lin.weight, lin.bias)
+
+
+def _encoder_linear(lin: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """An encoder linear: int8 and row-split layers as :func:`_linear`, a
+    float layer by the library one utterance a call."""
+    if isinstance(lin, (Int8Linear, SplitLinear)):
+        return _linear(lin, x)
+    return _device.per_utterance(
+        lambda t: F.linear(t, lin.weight, lin.bias), x)
 
 
 def _split_linear(lin: SplitLinear, x: torch.Tensor) -> torch.Tensor:
@@ -337,9 +358,11 @@ def _linear_int8(lin: Int8Linear, x: torch.Tensor) -> torch.Tensor:
     return out.reshape(*shape[:-1], out.shape[-1])
 
 
-def _mlp(blk: ResidualAttentionBlock, x: torch.Tensor) -> torch.Tensor:
+def _mlp(blk: ResidualAttentionBlock, x: torch.Tensor,
+         linear=None) -> torch.Tensor:
+    linear = _linear if linear is None else linear
     h = _layer_norm(blk.mlp_ln, x)
-    return _linear(blk.mlp[2], F.gelu(_linear(blk.mlp[0], h)))
+    return linear(blk.mlp[2], F.gelu(linear(blk.mlp[0], h)))
 
 
 def _split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
@@ -352,39 +375,38 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, t, h * hd)
 
 
-def _attend(q, k_t, v_t, dtype, mask=None):
-    """q (B, H, T, hd) scaled; k_t, v_t (B, H, hd, S) with k scaled. Scores
-    (B, H, T, S) in f32, f32 softmax, probabilities in ``dtype``, P v in f32
-    then ``dtype``. Returns (out (B, H, T, hd), scores)."""
-    qk = torch.matmul(q.float(), k_t.float())
-    if mask is not None:
-        qk = qk + mask
-    w = torch.softmax(qk, dim=-1).to(dtype)
-    out = torch.matmul(w.float(), v_t.float().transpose(-1, -2)).to(dtype)
-    return out, qk
+# q (B, H, T, hd) scaled; k_t, v_t (B, H, hd, S) with k scaled -> (out, f32
+# scores): the plain attention, kept for the int8 dequantize path
+_attend = attend_plain
 
 
-def _qkv_attention(attn: MultiHeadAttention, x, xa, mask=None):
+def _qkv_attention(attn: MultiHeadAttention, x, xa, mask=None,
+                   scores: bool = True):
     """Self- (xa None) or cross-attention over ``xa``; returns (out, qk f32)
-    where qk is the pre-softmax logits including the mask."""
+    where qk is the pre-softmax logits including the mask (None on a card
+    without ``scores``)."""
     n_head = attn.n_head
     scale = attn.head_dim ** -0.25
     q = _split_heads(_linear(attn.query, x), n_head) * scale
     src = x if xa is None else xa
     k = _split_heads(_linear(attn.key, src), n_head) * scale
     v = _split_heads(_linear(attn.value, src), n_head)
-    o, qk = _attend(q, k.transpose(-1, -2), v.transpose(-1, -2), x.dtype, mask)
+    o, qk = dec_attn(q, k.transpose(-1, -2), v.transpose(-1, -2),
+                     dtype=x.dtype, mask=mask, scores=scores)
     return _linear(attn.out, _merge_heads(o)), qk
 
 
 def _cross_attention_kv(attn: MultiHeadAttention, x, ck, cv,
-                        mode: str = "xla", step: bool = False):
-    """Cross-attention against precomputed (B, H, hd, F) K/V. Int8 K/V
+                        mode: str = "xla", step: bool = False,
+                        scores: bool = True):
+    """Cross-attention against precomputed (B, H, hd, F) K/V. Float K/V go
+    through the decoder attention (``ops/dec_attn_cuda.py``). Int8 K/V
     (``(codes, scales)`` pairs) run as ``mode`` says: ``mxu``
     (:func:`_cross_attn_step_int8_mxu`), ``kernel`` (the cross-attention
     kernel; decode steps only, ``step=True``) or ``xla`` (dequantize in the
     compute dtype, then attend). The returned logits are None on the int8
-    paths other than ``xla``."""
+    paths other than ``xla``, and on a card for float K/V without
+    ``scores``."""
     n_head = attn.n_head
     scale = attn.head_dim ** -0.25
     q = _split_heads(_linear(attn.query, x), n_head) * scale
@@ -394,20 +416,25 @@ def _cross_attention_kv(attn: MultiHeadAttention, x, ck, cv,
         o = cross_attn_step_int8(q, ck[0], ck[1], cv[0], cv[1],
                                  k_scale=scale).to(x.dtype)
         qk = None
-    else:
+    elif isinstance(ck, tuple):
         o, qk = _attend(q, _dequant(ck, x.dtype) * scale,
                         _dequant(cv, x.dtype), x.dtype)
+    else:
+        o, qk = dec_attn(q, ck, cv, dtype=x.dtype, k_scale=scale,
+                         scores=scores)
     return _linear(attn.out, _merge_heads(o)), qk
 
 
-def _encoder_self_attention(attn: MultiHeadAttention, x, n_valid: int):
+def _encoder_self_attention(attn: MultiHeadAttention, x, n_valid: int,
+                            linear=None):
+    linear = _encoder_linear if linear is None else linear
     n_head = attn.n_head
     scale = attn.head_dim ** -0.25
-    q = (_split_heads(_linear(attn.query, x), n_head) * scale).contiguous()
-    k = (_split_heads(_linear(attn.key, x), n_head) * scale).contiguous()
-    v = _split_heads(_linear(attn.value, x), n_head).contiguous()
+    q = (_split_heads(linear(attn.query, x), n_head) * scale).contiguous()
+    k = (_split_heads(linear(attn.key, x), n_head) * scale).contiguous()
+    v = _split_heads(linear(attn.value, x), n_head).contiguous()
     o = encoder_self_attention(q, k, v, n_valid=n_valid)
-    return _linear(attn.out, _merge_heads(o.to(x.dtype)))
+    return linear(attn.out, _merge_heads(o.to(x.dtype)))
 
 
 @torch.no_grad()
@@ -418,14 +445,14 @@ def encode_audio(model: Whisper, mel: torch.Tensor,
     dev = _check_device(model, device)
     enc = model.encoder
     x = mel.to(device=dev, dtype=model.dtype)
-    x = F.gelu(enc.conv1(x))
-    x = F.gelu(enc.conv2(x))
+    x = F.gelu(_device.per_utterance(enc.conv1, x))
+    x = F.gelu(_device.per_utterance(enc.conv2, x))
     x = x.transpose(1, 2) + enc.positional_embedding
     t = x.shape[1]
     for blk in enc.blocks:
         x = x + _encoder_self_attention(blk.attn, _layer_norm(blk.attn_ln, x),
                                         n_valid=t)
-        x = x + _mlp(blk, x)
+        x = x + _mlp(blk, x, _encoder_linear)
     return _layer_norm(enc.ln_post, x)
 
 
@@ -434,7 +461,10 @@ def _causal_mask(t: int, device) -> torch.Tensor:
 
 
 def _logits(model: Whisper, x: torch.Tensor) -> torch.Tensor:
-    return F.linear(x.float(), model.decoder.token_embedding.weight.float())
+    """The tied lm head in float32: on a card the embedding is read as it
+    is stored (``rows_linear``), with no float32 copy of it."""
+    return rows_linear(x, model.decoder.token_embedding.weight,
+                       out_dtype=torch.float32)
 
 
 def qk_to_attention(qk: torch.Tensor, frame_len: torch.Tensor,
@@ -490,14 +520,15 @@ def decode_text(model: Whisper, tokens: torch.Tensor, xa: Optional[torch.Tensor]
         token_len = token_len.to(device=dev, dtype=torch.int32)
     qks = []
     for layer, blk in enumerate(dec.blocks):
-        a, _ = _qkv_attention(blk.attn, _layer_norm(blk.attn_ln, x), None, mask)
+        a, _ = _qkv_attention(blk.attn, _layer_norm(blk.attn_ln, x), None,
+                              mask, scores=False)
         x = x + a
         h = _layer_norm(blk.cross_attn_ln, x)
         if cross_kv is not None:
             c, qk = _cross_attention_kv(blk.cross_attn, h, cross_kv[0][layer],
-                                        cross_kv[1][layer])
+                                        cross_kv[1][layer], scores=return_qk)
         else:
-            c, qk = _qkv_attention(blk.cross_attn, h, xa)
+            c, qk = _qkv_attention(blk.cross_attn, h, xa, scores=return_qk)
         x = x + c
         if return_qk:
             if medfilt_width is not None:
@@ -664,14 +695,14 @@ def _cached_layers(model: Whisper, x, cache: Cache, cross_kv,
         k_layer, v_layer = cache["k"][layer], cache["v"][layer]
         for dst, new in ((k_layer, k_new), (v_layer, v_new)):
             dst.index_copy_(-1, cols, new.transpose(-1, -2).to(dst.dtype))
-        a, _ = _attend(q, k_layer.to(dtype) * scale, v_layer.to(dtype), dtype,
-                       mask)
+        a, _ = dec_attn(q, k_layer, v_layer, dtype=dtype, mask=mask,
+                        k_scale=scale)
         x = x + _linear(attn.out, _merge_heads(a))
         c, _ = _cross_attention_kv(blk.cross_attn,
                                    _layer_norm(blk.cross_attn_ln, x),
                                    _layer_kv(cross_ks, layer),
                                    _layer_kv(cross_vs, layer),
-                                   mode=cross_mode, step=step)
+                                   mode=cross_mode, step=step, scores=False)
         x = x + c
         x = x + _mlp(blk, x)
     return x

@@ -45,9 +45,11 @@ LAUNCHES: Dict[str, int] = {
     "encoder_attn": 0, "encoder_attn_kt": 0, "qkpost": 0, "qkpost_rank": 0,
     "dtw_trace": 0,
     "dtw_backtrace": 0, "cross_attn_int8": 0, "cross_attn": 0, "mel": 0,
-    "mel_clip": 0, "int8_quant": 0, "int8_dequant": 0}
+    "mel_clip": 0, "int8_quant": 0, "int8_dequant": 0, "dec_attn": 0,
+    "rows_linear": 0}
 
 _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_i64p = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     # q, k, v, o, batch*heads, T, n_valid, head_dim, is_bf16, stream
     "wca_encoder_attn": [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _vp],
@@ -76,6 +78,14 @@ _SIGNATURES = {
     "wca_int8_quant": [_vp, _vp, _vp, _vp, _i, _i, _i, _vp],
     # y, xs, s, bias (or null), out, M, N, is_bf16, stream
     "wca_int8_dequant": [_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _vp],
+    # q, k, v, mask (or null), out, scores (or null), 11 strides, B, H, P,
+    # S, head_dim, k_scale, has_scale, kv_bf16, c_bf16, stream
+    "wca_dec_attn": [_vp, _vp, _vp, _vp, _vp, _vp, _i64p, _i, _i, _i, _i, _i,
+                     _f, _i, _i, _i, _vp],
+    # x, w, bias (or null), out, part, tickets, M, N, K, seg_chunks, n_seg,
+    # split, is_bf16, out_f32, stream
+    "wca_rows_linear": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i,
+                        _i, _i, _vp],
 }
 
 _lock = threading.Lock()

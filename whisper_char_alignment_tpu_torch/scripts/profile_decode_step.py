@@ -8,7 +8,7 @@ at Whisper-medium width, B=32.
 
 :func:`make_loop` builds a stripped copy of one decode step from the model's
 own helpers (``models/whisper.py``: ``_layer_norm``, ``_linear``,
-``_split_heads``, ``_attend``, ``_cross_attention_kv``, ``_mlp``,
+``_split_heads``, ``dec_attn``, ``_cross_attention_kv``, ``_mlp``,
 ``_logits``, and ``decoding.apply_logit_filters``); nothing of the main path
 gains a switch. With every stage on it computes what ``whisper.decode_step``
 computes: :func:`step_logits` equals that step's logits bit for bit. As in
@@ -89,14 +89,14 @@ def _layers(model, x, cache, cross_kv, pos, *, cross=True, self_attn=True,
                 torch.index_copy(c[li], -1, pos,
                                  new.transpose(-1, -2).to(c.dtype))
                 for c, new in ((cache["k"], k_new), (cache["v"], v_new)))
-            a, _ = wmodel._attend(q, k_all.to(dtype) * scale,
-                                  v_all.to(dtype), dtype, mask)
+            a, _ = wmodel.dec_attn(q, k_all, v_all, dtype=dtype, mask=mask,
+                                   k_scale=scale)
             x = x + wmodel._linear(attn.out, wmodel._merge_heads(a))
         if cross:
             c, _ = wmodel._cross_attention_kv(
                 blk.cross_attn, wmodel._layer_norm(blk.cross_attn_ln, x),
                 wmodel._layer_kv(cross_ks, li), wmodel._layer_kv(cross_vs, li),
-                mode=CROSS_MODES[cross_impl], step=True)
+                mode=CROSS_MODES[cross_impl], step=True, scores=False)
             x = x + c
         if mlp:
             x = x + wmodel._mlp(blk, x)

@@ -537,7 +537,9 @@ def transcribe_batched(model, tokenizer, audios, *, max_batch: int = 8,
 
     Batches are padded to a power of two (<= ``max_batch``) by repeating row
     0; the padded rows' results are discarded. Each request's result equals
-    its solo :func:`transcribe`."""
+    its solo :func:`transcribe`, bit for bit on a card too (the decoder's
+    rows do not depend on the batch: ``ops/dec_attn_cuda.py``,
+    ``ops/rows_linear_cuda.py``)."""
     device = wmodel._check_device(model, device).type
     gens = [_seek_machine(model, tokenizer, a, device=device, **kwargs)
             for a in audios]

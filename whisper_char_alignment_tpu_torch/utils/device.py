@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
 import torch
 
@@ -28,3 +28,14 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
 
+
+
+def per_utterance(fn: Callable[[torch.Tensor], torch.Tensor],
+                  x: torch.Tensor) -> torch.Tensor:
+    """``fn`` over x (B, ...) called on one utterance at a time on a card,
+    at one call shape whatever B: the library chooses a product's or a
+    convolution's kernel by the whole call's shape, so a batch's rows would
+    be summed in orders that depend on B. One call on the CPU."""
+    if x.device.type != "cuda" or x.shape[0] == 1:
+        return fn(x)
+    return torch.cat([fn(x[i:i + 1]) for i in range(x.shape[0])])
