@@ -298,16 +298,21 @@ def device_ms(fn, kernel: str = "", iters: int = 20, warmup: int = 3):
     return us / 1e3 if us > 0 else None
 
 
-def launch_ms(fn, kernel: str, iters: int = 20, warmup: int = 3):
+def launch_ms(fn, kernel, iters: int = 20, warmup: int = 3):
     """The device times in ms, sorted, of the launches of the kernel named
     ``kernel`` in a ``torch.profiler`` trace of ``iters`` calls of ``fn``
     after warmup, each launch's own record. Only launches that began inside
     the trace count: a trace can hand back records of launches made before
-    it, which time other inputs."""
+    it, which time other inputs. ``kernel`` may be a tuple of the names of
+    the kernels that one call launches, in order: then each time is one
+    call's span on the device, from its first launch's start to its last
+    one's end (a launch may start before the one it depends on ends), and a
+    call whose records the trace lost in part is left out."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -315,43 +320,57 @@ def launch_ms(fn, kernel: str, iters: int = 20, warmup: int = 3):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sorted((e.time_range.end - e.time_range.start) / 1e3
-                  for e in prof.events()
-                  if e.device_type == DeviceType.CUDA and kernel in e.name
-                  and e.time_range.start >= 0)
+    records = sorted((e.time_range.start, e.time_range.end, e.name)
+                     for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and any(n in e.name for n in names)
+                     and e.time_range.start >= 0)
+    times, call = [], None
+    for start, end, name in records:
+        if names[0] in name:
+            call = []
+        if call is None or names[len(call)] not in name:
+            call = None
+            continue
+        call.append((start, end))
+        if len(call) == len(names):
+            times.append((max(e for _, e in call) - call[0][0]) / 1e3)
+            call = None
+    return sorted(times)
 
 
-def kernel_ms(fn, kernel: str, bound_ms: float, tries: int = 3,
-              iters: int = 20):
+def kernel_ms(fn, kernel, bound_ms: float, tries: int = 3, iters: int = 20):
     """(ms, method): the device time of one launch of the kernel named
-    ``kernel``, which ``fn`` launches once a call: the median of its
-    launches' own records in a trace of ``iters`` calls
-    (:func:`launch_ms`), ``"trace"``. A trace that holds records of fewer
-    than half the calls, or of more launches than calls, is taken again, up
-    to ``tries`` times; only then the CUDA-event time of the whole call
-    (host time included) stands in, ``"events"``. A traced time below the
-    card's bound for the work is impossible: it is taken again too, and
-    fails the run if no trace reads at or above the bound, since then the
-    bound or its byte count is wrong."""
+    ``kernel`` (or of one call's launches of the kernels a tuple names),
+    which ``fn`` launches once a call: the median of its launches' own
+    records in a trace of ``iters`` calls (:func:`launch_ms`), ``"trace"``.
+    A trace that holds records of fewer than half the calls, or of more
+    launches than calls, is taken again, up to ``tries`` times; only then
+    the CUDA-event time of the whole call (host time included) stands in,
+    ``"events"``. A traced time below the card's bound for the work is
+    impossible: it is taken again too, and fails the run if no trace reads
+    at or above the bound, since then the bound or its byte count is
+    wrong."""
     import statistics
 
+    label = kernel if isinstance(kernel, str) else "+".join(kernel)
     below = []
     for _ in range(tries):
         times = launch_ms(fn, kernel, iters)
         if not iters // 2 <= len(times) <= iters:
-            log(f"  the trace holds {len(times)} records of {kernel} for "
+            log(f"  the trace holds {len(times)} records of {label} for "
                 f"{iters} calls: tracing again")
             continue
         ms = statistics.median(times)
         if ms >= bound_ms:
             return ms, "trace"
         below.append(ms)
-        log(f"  {kernel}: traced {ms:.4g} ms ({len(times)} launches, "
+        log(f"  {label}: traced {ms:.4g} ms ({len(times)} launches, "
             f"{times[0]:.4g} to {times[-1]:.4g} ms) is below its bound "
             f"{bound_ms:.4g} ms: tracing again")
-    check(not below, f"{kernel}: every trace read below its bound "
+    check(not below, f"{label}: every trace read below its bound "
           f"{bound_ms:.4g} ms ({', '.join(f'{ms:.4g}' for ms in below)} ms)")
-    log(f"  {tries} traces held too few or too many records of {kernel}: "
+    log(f"  {tries} traces held too few or too many records of {label}: "
         f"CUDA events of the whole call")
     return cuda_ms(fn), "events"
 
@@ -902,7 +921,9 @@ def decoder_rows(gen):
     others there: an item alone against its batch of 8, a row alone against
     a 5-row window, a row's linear alone against 8 rows. ``dec_attn``'s row
     of the kernels line is the cross-attention step over bf16 K/V (8, 16,
-    64, 1500), timed with inputs rotated out of L2, beside SDPA;
+    64, 1500), its two launches timed as one span with inputs rotated out of
+    L2, beside SDPA (the step at B=1, the self step, a 5-row window and the
+    capture's cross and self attention are logged the same way);
     ``rows_linear``'s the MLP's first linear (4096 x 1024) at 8 rows, also
     rotated, beside ``F.linear``; the other shapes are logged."""
     import torch
@@ -929,6 +950,7 @@ def decoder_rows(gen):
     # -- dec_attn: (label, B, P, S, K/V laid out as the cache or as a
     # transposed projection, masked, K scaled, scores kept)
     cases = (("cross step", 8, 1, 1500, "cache", False, True, False),
+             ("cross step B=1", 1, 1, 1500, "cache", False, True, False),
              ("self step", 8, 1, 48, "cache", True, True, False),
              ("window", 1, 5, 448, "cache", True, True, False),
              ("capture cross", 8, 96, 1500, "proj", False, False, True),
@@ -968,13 +990,21 @@ def decoder_rows(gen):
         check(bits_equal(one, out[:, :, r:r + 1]),
               f"dec_attn {label}: the last row alone differs")
         in_bytes = sum(t.numel() * t.element_size() for t in (q, k, v))
-        nbytes = (in_bytes + out.numel() * 2
+        # the bound reads only the keys some row sees: the columns past the
+        # last visible one add nothing
+        seen = (s_ if mask is None else
+                int((mask > float("-inf")).any(0).nonzero().max()) + 1)
+        nbytes = (q.numel() * 2 + (k.numel() + v.numel()) * 2 * seen // s_
+                  + out.numel() * 2
                   + (0 if mask is None else mask.numel() * 4)
                   + (sc.numel() * 4 if scores else 0))
-        ops = 4 * b * h * p * s_ * hd
+        ops = 4 * b * h * p * seen * hd
         bound, by = bound_of(nbytes, ops, PEAK_BF16)
         cold, n_copies = rotated(call, (q, k, v), in_bytes)
-        ms, method = kernel_ms(cold, "dec_attn_kernel", bound)
+        # past one chunk of keys a call is two launches (scores, then P.V
+        # and the chunk fold), timed together
+        launches = dec_attn_cuda.kernels(s_)
+        ms, method = kernel_ms(cold, launches, bound)
         plain_ms = cuda_ms(lambda: dec_attn_cuda.dec_attn_plain(
             q, k, v, dtype=bf16, mask=mask, k_scale=ks))
         # SDPA on K/V laid out (B, H, S, hd), K scaled as the kernel scales
@@ -987,9 +1017,10 @@ def decoder_rows(gen):
             in_bytes)
         lib_ms, lib_method = library_ms(sdpa, bound)
         log(f"dec_attn {label} (B={b}, H={h}, P={p}, S={s_}, hd={hd}, "
-            f"{layout}): max abs err {err.max().item():.3g} (tol 2e-2 + 2e-2 "
-            f"rel); item and row alone bit-equal; kernel {ms:.4f} ms "
-            f"({method}, rotated over {n_copies} copies), plain "
+            f"{layout}{', scores' if scores else ''}): max abs err "
+            f"{err.max().item():.3g} (tol 2e-2 + 2e-2 rel); item and row "
+            f"alone bit-equal; kernel {ms:.4f} ms ({' + '.join(launches)}, "
+            f"{method}, rotated over {n_copies} copies), plain "
             f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms ({lib_method}), bound "
             f"{bound:.5f} ms ({by}, {nbytes / 1e6:.1f} MB, "
             f"{ops / 1e6:.1f} MFLOP)")

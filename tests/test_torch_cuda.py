@@ -814,7 +814,23 @@ def _attn_inputs(cuda, b, h, p, s, hd, kv_dtype, dtype, layout, seed):
     (2, 4, 37, 37, 64, "proj", True, False),
     (1, 2, 9, 131, 16, "cache", True, True),
     (1, 2, 3, 300, 128, "cache", True, True),
-    (1, 2, 4, 64, 8, "cache", True, True)])
+    (1, 2, 4, 64, 8, "cache", True, True),
+    # B=1 cross step; key counts at a 128-key chunk's edges and past 1500
+    (1, 16, 1, 1500, 64, "cache", False, True),
+    (2, 4, 3, 127, 64, "cache", True, True),
+    (2, 4, 3, 128, 64, "cache", True, True),
+    (2, 4, 3, 129, 64, "proj", True, False),
+    (2, 4, 1, 1540, 64, "cache", False, True),
+    # the capture: cross over projections and over the decode's K/V, self
+    (8, 16, 96, 1500, 64, "proj", False, False),
+    (8, 16, 96, 1500, 64, "cache", False, True),
+    (2, 4, 96, 96, 64, "proj", True, False),
+    # head dims 8, 16, 128, 256 in both layouts
+    (1, 2, 4, 64, 8, "proj", True, False),
+    (1, 2, 17, 200, 16, "proj", True, False),
+    (1, 2, 5, 129, 128, "proj", False, False),
+    (1, 2, 5, 300, 256, "cache", True, True),
+    (1, 2, 5, 300, 256, "proj", True, False)])
 def test_dec_attn_kernel(cuda, dtype, kv_dtype, b, h, p, s, hd, layout,
                          masked, scaled):
     """The decoder attention against its plain version (the port's
@@ -870,19 +886,124 @@ def test_dec_attn_rows_do_not_depend_on_their_neighbours(cuda, dtype, p, m):
                        dim=-1)
     wide, _ = run(q, pad(k), pad(v), longer)
     assert _bits_equal(wide, full)
-    static = [t.clone() for t in (q, k, v, mask)]
-    out = {}
+    # in a graph over one chunk (96 keys) and over two (136: the tickets
+    # are ready again after each replay)
+    for args, want in (((q, k, v, mask), full),
+                       ((q, pad(k), pad(v), longer), wide)):
+        static = [t.clone() for t in args]
+        out = {}
 
-    def body():
-        out["o"], out["s"] = run(*static)
+        def body():
+            out["o"], out["s"] = run(*static)
 
-    body()  # first use outside the capture
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        body()
-    graph.replay()
-    torch.cuda.synchronize()
-    assert _bits_equal(out["o"], full) and _bits_equal(out["s"], full_sc)
+        body()  # first use outside the capture
+        want_sc = out["s"].clone()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            body()
+        graph.replay()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _bits_equal(out["o"], want) and _bits_equal(out["s"], want_sc)
+    assert _bits_equal(want_sc[..., :s], full_sc)
+
+
+def _one_row(cuda, dtype, layout, h, s, hd, seed):
+    """A query row (B=2, H, 1, hd), its K/V and a mask row that shows the
+    first 100 keys."""
+    q, k, v, _ = _attn_inputs(cuda, 2, h, 1, s, hd, dtype, dtype, layout,
+                              seed)
+    mask = torch.zeros((1, s), device=cuda)
+    mask[:, 100:] = float("-inf")
+    return q, k, v, mask
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("layout", ["cache", "proj"])
+@pytest.mark.parametrize("s", [127, 128, 129, 1500])
+def test_dec_attn_rows_do_not_depend_on_masked_chunks(cuda, dtype, layout,
+                                                      s):
+    """A row over S keys equals, bit for bit, the same row with masked keys
+    appended: to the end of its last chunk, one whole chunk more (1500
+    against 1540 and 1756) and three (S + 384), with random K/V behind the
+    mask; and the appended chunks' scores are -inf."""
+    h, hd = 4, 64
+    q, k, v, mask = _one_row(cuda, dtype, layout, h, s, hd, s)
+
+    def run(kk, vv, mm):
+        return dec_attn_cuda.dec_attn(q, kk, vv, dtype=dtype, mask=mm,
+                                      k_scale=hd ** -0.25, scores=True)
+
+    def pad(t, extra):  # in t's own layout
+        new = torch.randn((*t.shape[:-1], extra), device=cuda).to(t.dtype)
+        if layout == "cache":
+            return torch.cat([t, new], dim=-1)
+        return torch.cat([t.transpose(-1, -2), new.transpose(-1, -2)],
+                         dim=-2).transpose(-1, -2)
+
+    base, base_sc = run(k, v, mask)
+    for extra in sorted({-s % 128, 40, 256, 384} - {0}):
+        longer = torch.cat([mask, torch.full((1, extra), float("-inf"),
+                                             device=cuda)], dim=-1)
+        got, sc = run(pad(k, extra), pad(v, extra), longer)
+        assert _bits_equal(got, base), extra
+        assert _bits_equal(sc[..., :s], base_sc), extra
+        assert bool((sc[..., s:] == float("-inf")).all()), extra
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("layout", ["cache", "proj"])
+@pytest.mark.parametrize("p", [16, 96])
+def test_dec_attn_a_step_row_equals_itself_in_any_tile(cuda, dtype, layout,
+                                                       p):
+    """A decode step's one row equals itself, bit for bit, at every place
+    of a 16-row tile and of a 96-row transcript (other rows random), over
+    1500 keys unmasked and 448 masked past its position."""
+    h, hd = 4, 64
+    for s, masked in ((1500, False), (448, True)):
+        q, k, v, mask = _one_row(cuda, dtype, layout, h, s, hd, p + s)
+        mask = mask if masked else None
+        step, step_sc = dec_attn_cuda.dec_attn(q, k, v, dtype=dtype,
+                                               mask=mask, scores=True)
+        g = torch.Generator(device=cuda).manual_seed(p)
+        for r in sorted({0, 5, 8, p - 1}):
+            qq = (torch.randn((2, h, p, hd), generator=g, device=cuda)
+                  * hd ** -0.25).to(dtype)
+            qq[:, :, r:r + 1] = q
+            mm = None if mask is None else mask.expand(p, s)
+            got, sc = dec_attn_cuda.dec_attn(qq, k, v, dtype=dtype, mask=mm,
+                                             scores=True)
+            assert _bits_equal(got[:, :, r:r + 1], step), (s, r)
+            assert _bits_equal(sc[:, :, r:r + 1], step_sc), (s, r)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("p", [4, 20, 130])
+def test_dec_attn_a_prompt_equals_its_steps(cuda, dtype, p):
+    """A prompt of P rows over a 448-column cache that holds all P new
+    columns (``decode_prefill``) equals P steps, bit for bit, each over the
+    cache as it stood at its step (later columns still zero), with the
+    position mask; P = 130 crosses a chunk."""
+    b, h, hd, s = 2, 4, 64, 448
+    g = torch.Generator(device=cuda).manual_seed(p)
+    q = (torch.randn((b, h, p, hd), generator=g, device=cuda)
+         * hd ** -0.25).to(dtype)
+    new_k, new_v = (torch.randn((b, h, hd, p), generator=g, device=cuda)
+                    .to(dtype) for _ in range(2))
+    k, v = (torch.zeros((b, h, hd, s), dtype=dtype, device=cuda)
+            for _ in range(2))
+    k[..., :p], v[..., :p] = new_k, new_v
+    rows = torch.arange(p, device=cuda)
+    prompt, _ = dec_attn_cuda.dec_attn(q, k, v, dtype=dtype,
+                                       mask=tw._position_mask(rows, s),
+                                       k_scale=hd ** -0.25)
+    ks, vs = torch.zeros_like(k), torch.zeros_like(v)
+    for i in range(p):
+        ks[..., i], vs[..., i] = new_k[..., i], new_v[..., i]
+        step, _ = dec_attn_cuda.dec_attn(
+            q[:, :, i:i + 1], ks, vs, dtype=dtype,
+            mask=tw._position_mask(rows[i:i + 1], s), k_scale=hd ** -0.25)
+        assert _bits_equal(step, prompt[:, :, i:i + 1]), i
 
 
 _LINEAR_SHAPES = [(1024, 1024), (4096, 1024), (1024, 4096), (5003, 1024),

@@ -355,14 +355,47 @@ def test_dec_attn_arguments(recorder, p):
     assert sc.shape == (b, h, p, s) and sc.dtype == torch.float32
     (name, args), = recorder.calls
     assert name == "wca_dec_attn"
-    assert list(args[6]) == [*q.stride()[:3], *k.stride(),
+    assert args[5] == sc.data_ptr()
+    # ten keys are one chunk: one launch, no workspace
+    assert args[6] is None and args[7] is None and args[8] is None
+    assert list(args[9]) == [*q.stride()[:3], *k.stride(),
                              *v.stride()]
-    assert args[7:] == (b, h, p, s, hd, 0.5, 1, 1, 1, 0)
+    assert args[10:] == (b, h, p, s, hd, 0.5, 1, 1, 1, 1, 0)
     recorder.calls.clear()
     out, sc = dec_attn_cuda.dec_attn(q, v, v, dtype=torch.bfloat16)
     (_, args), = recorder.calls
+    # no scores asked, none kept within one chunk
     assert sc is None and args[3] is None and args[5] is None
-    assert args[12:16] == (1.0, 0, 1, 1)
+    assert args[15:20] == (1.0, 0, 0, 1, 1)
+
+
+def test_dec_attn_splits_the_keys_into_chunks(recorder):
+    """Past one chunk of 128 keys the scores' workspace, the chunks' terms,
+    the partials and the tile tickets are passed (enough tickets for every
+    (item, head, 16-row tile)); K or V with stride 1 along neither axis is
+    copied to a layout the kernel reads; f32 passes f32 flags."""
+    b, h, p, hd, s = 2, 3, 20, 16, 300
+    q = torch.zeros((b, h, p, hd))
+    k = torch.zeros((b, h, s, hd)).transpose(-1, -2)
+    v = torch.zeros((b, h, hd, 2 * s))[..., ::2]
+    _, sc = dec_attn_cuda.dec_attn(q, k, v, dtype=torch.float32)
+    (_, args), = recorder.calls
+    assert sc is None and None not in args[5:8]
+    assert dec_attn_cuda.kernels(s) == ("dec_attn_qk", "dec_attn_pv")
+    assert dec_attn_cuda.kernels(128) == ("dec_attn_one",)
+    tickets = dec_attn_cuda._tickets[torch.device("cpu")]
+    assert args[8] == tickets.data_ptr() and tickets.numel() >= b * h * 2
+    assert not tickets.any()
+    assert list(args[9])[3:] == [*k.stride(), *v.contiguous().stride()]
+    assert args[10:15] == (b, h, p, s, hd) and args[18:20] == (0, 0)
+
+
+def test_dec_attn_refuses_a_grid_past_65535_items_x_heads(recorder):
+    q = torch.zeros((1, 65536, 1, 8), dtype=torch.bfloat16)
+    kv = torch.zeros((1, 65536, 8, 1), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="65535"):
+        dec_attn_cuda.dec_attn(q, kv, kv, dtype=torch.bfloat16)
+    assert recorder.calls == []
 
 
 # -- a decode with JAX weights, as before -------------------------------------

@@ -78,10 +78,12 @@ _SIGNATURES = {
     "wca_int8_quant": [_vp, _vp, _vp, _vp, _i, _i, _i, _vp],
     # y, xs, s, bias (or null), out, M, N, is_bf16, stream
     "wca_int8_dequant": [_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _vp],
-    # q, k, v, mask (or null), out, scores (or null), 11 strides, B, H, P,
-    # S, head_dim, k_scale, has_scale, kv_bf16, c_bf16, stream
-    "wca_dec_attn": [_vp, _vp, _vp, _vp, _vp, _vp, _i64p, _i, _i, _i, _i, _i,
-                     _f, _i, _i, _i, _vp],
+    # q, k, v, mask, out, scores, stats, part, tickets (each of the last
+    # four null within one chunk of keys; mask null without one), 11
+    # strides, B, H, P, S, head_dim, k_scale, has_scale, want_scores,
+    # kv_bf16, c_bf16, stream
+    "wca_dec_attn": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i64p, _i,
+                     _i, _i, _i, _i, _f, _i, _i, _i, _i, _vp],
     # x, w, bias (or null), out, part, tickets, M, N, K, seg_chunks, n_seg,
     # split, is_bf16, out_f32, stream
     "wca_rows_linear": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i,
