@@ -913,6 +913,20 @@ def cross_attn_rows(gen):
     return rows
 
 
+# rows_linear at the main path's shapes (label, M, N, K, bias, out_dtype):
+# a decode step of 8 utterances (32: B=32; 40: beam 5 of 8) through the
+# attention's and the MLP's linears and the lm head, the capture's rows
+# (8 x 96) and the cross K/V's (8 x 1500), at Whisper-medium width
+LINEAR_CASES = (("mlp fc1", 8, 4096, 1024, True, None),
+                ("q/k/v/out", 8, 1024, 1024, True, None),
+                ("q/k/v/out M=32", 32, 1024, 1024, True, None),
+                ("q/k/v/out M=40", 40, 1024, 1024, True, None),
+                ("mlp fc2", 8, 1024, 4096, True, None),
+                ("lm head", 8, 51865, 1024, False, "float32"),
+                ("capture rows", 768, 1024, 1024, True, None),
+                ("cross K/V rows", 12000, 1024, 1024, True, None))
+
+
 def decoder_rows(gen):
     """The decoder's two row-invariant kernels at the main path's shapes
     (a decode step of 8 utterances at Whisper-medium width: 16 heads of 64,
@@ -925,7 +939,8 @@ def decoder_rows(gen):
     L2, beside SDPA (the step at B=1, the self step, a 5-row window and the
     capture's cross and self attention are logged the same way);
     ``rows_linear``'s the MLP's first linear (4096 x 1024) at 8 rows, also
-    rotated, beside ``F.linear``; the other shapes are logged."""
+    rotated, beside ``F.linear``; every other shape of ``LINEAR_CASES`` is
+    held, timed under the name of the kernel its rows take, and logged."""
     import torch
     import torch.nn.functional as F
 
@@ -1035,13 +1050,9 @@ def decoder_rows(gen):
                 bound_by=by, library_ms=lib_ms,
                 library_ms_method=lib_method)
 
-    # -- rows_linear: (label, N, K, bias, out_dtype) at 8 rows
-    m = BATCH
-    for label, n, k, bias, out_dtype in (
-            ("mlp fc1", 4096, 1024, True, None),
-            ("q/k/v/out", 1024, 1024, True, None),
-            ("mlp fc2", 1024, 4096, True, None),
-            ("lm head", 51865, 1024, False, torch.float32)):
+    # -- rows_linear at the main path's shapes, each rotated out of L2
+    for label, m, n, k, bias, out_name in LINEAR_CASES:
+        out_dtype = None if out_name is None else getattr(torch, out_name)
         x = randn(m, k)
         w = randn(n, k, mul=k ** -0.5)
         bb = randn(n) if bias else None
@@ -1067,7 +1078,8 @@ def decoder_rows(gen):
         ops = 2 * m * n * k
         bound, by = bound_of(nbytes, ops, PEAK_BF16)
         cold, n_copies = rotated(call, args, in_bytes)
-        ms, method = kernel_ms(cold, "rows_linear_bf16_kernel", bound)
+        kernel = rows_linear_cuda.kernel_name(m, n, k, bf16)
+        ms, method = kernel_ms(cold, kernel, bound)
         plain_ms = cuda_ms(lambda: rows_linear_cuda.rows_linear_plain(
             x, w, bb, out_dtype))
         # the library call on the same inputs: bf16 out for the lm head
@@ -1076,11 +1088,13 @@ def decoder_rows(gen):
         lib_ms, lib_method = library_ms(lib, bound)
         seg_chunks, n_seg = rows_linear_cuda.plan(n, k, bf16)
         log(f"rows_linear {label} (M={m}, N={n}, K={k}; {n_seg} segments of "
-            f"{seg_chunks * rows_linear_cuda.CHUNK[bf16]}): max err "
-            f"{err:.3g} of the row's largest; rows alone bit-equal; kernel "
-            f"{ms:.4f} ms ({method}, rotated over {n_copies} copies), plain "
-            f"{plain_ms:.4f} ms, F.linear {lib_ms:.4f} ms ({lib_method}), "
-            f"bound {bound:.5f} ms ({by}, {nbytes / 1e6:.1f} MB)")
+            f"{seg_chunks * rows_linear_cuda.CHUNK[bf16]}, {kernel} mode "
+            f"{rows_linear_cuda.route(m, n, k, bf16)}): max err {err:.3g} of "
+            f"the row's largest; rows alone bit-equal; kernel {ms:.4f} ms "
+            f"({method}, rotated over {n_copies} copies, "
+            f"{ops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+            f"F.linear {lib_ms:.4f} ms ({lib_method}), bound {bound:.5f} ms "
+            f"({by}, {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP)")
         if label == "mlp fc1":
             rows["rows_linear"] = dict(
                 name="rows_linear", route="cuda",
@@ -1090,24 +1104,6 @@ def decoder_rows(gen):
                 max_abs_err=err, ms=ms, ms_method=method, plain_ms=plain_ms,
                 bound_ms=bound, bound_by=by, library_ms=lib_ms,
                 library_ms_method=lib_method)
-    # a linear at a transcript's rows (the capture: 8 x 96) and at the
-    # audio's (the cross K/V: 8 x 1500), whole-segment blocks
-    for label, m_, n, k in (("capture rows", 768, 1024, 1024),
-                            ("cross K/V rows", 12000, 1024, 1024)):
-        x, w, bb = randn(m_, k), randn(n, k, mul=k ** -0.5), randn(n)
-        y = rows_linear_cuda.rows_linear(x, w, bb)
-        check(bits_equal(rows_linear_cuda.rows_linear(x[-1:], w, bb), y[-1:]),
-              f"rows_linear {label}: the last row alone differs")
-        ops = 2 * m_ * n * k
-        nbytes = (x.numel() + w.numel() + n + y.numel()) * 2
-        bound, by = bound_of(nbytes, ops, PEAK_BF16)
-        ms, method = kernel_ms(lambda: rows_linear_cuda.rows_linear(x, w, bb),
-                               "rows_linear_bf16_kernel", bound)
-        lib_ms, lib_method = library_ms(lambda: F.linear(x, w, bb), bound)
-        log(f"rows_linear {label} (M={m_}, N={n}, K={k}): last row alone "
-            f"bit-equal; kernel {ms:.4f} ms ({method}, "
-            f"{ops / ms / 1e9:.1f} TFLOP/s), F.linear {lib_ms:.4f} ms "
-            f"({lib_method}), bound {bound:.5f} ms ({by})")
     return rows
 
 

@@ -1008,13 +1008,36 @@ def test_dec_attn_a_prompt_equals_its_steps(cuda, dtype, p):
 
 _LINEAR_SHAPES = [(1024, 1024), (4096, 1024), (1024, 4096), (5003, 1024),
                   (96, 32), (40, 16)]
+# the decoder's linears at Whisper's other widths (tiny, base, small,
+# large): q/k/v/out, fc1 and fc2, K not always a whole number of segments
+_WIDTH_SHAPES = [s for d in (384, 512, 768, 1280)
+                 for s in ((d, d), (4 * d, d), (d, 4 * d))]
+# rows at the regimes' edges and on the main path: a step at B = 1-32 and
+# beam 5's 40, the capture's 768 and the cross K/V's 12,000
+_LINEAR_ROWS = [1, 7, 16, 32, 33, 40, 64, 65, 300, 768, 12000]
+
+
+def _linear_inputs(cuda, dtype, m, n, k, with_bias, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((m, k), generator=g, device=cuda).to(dtype)
+    w = (torch.randn((n, k), generator=g, device=cuda) * k ** -0.5).to(dtype)
+    bias = (torch.randn((n,), generator=g, device=cuda).to(dtype)
+            if with_bias else None)
+    return x, w, bias
+
+
+def _linear_err(got, want) -> float:
+    """The largest error over each row's largest output."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    scale = want.float().abs().amax(dim=-1, keepdim=True).clamp_min(1e-3)
+    return ((got.float() - want.float()).abs() / scale).max().item()
 
 
 @pytest.mark.parametrize("dtype,out_dtype,tol", [
     (torch.bfloat16, None, 1e-2), (torch.bfloat16, torch.float32, 1e-4),
     (torch.float32, None, 1e-5)])
-@pytest.mark.parametrize("n,k", _LINEAR_SHAPES)
-@pytest.mark.parametrize("m", [1, 7, 16, 40, 300])
+@pytest.mark.parametrize("n,k", _LINEAR_SHAPES + _WIDTH_SHAPES)
+@pytest.mark.parametrize("m", _LINEAR_ROWS)
 @pytest.mark.parametrize("with_bias", [True, False])
 def test_rows_linear_kernel(cuda, dtype, out_dtype, tol, n, k, m, with_bias):
     """The linear against ``F.linear`` (its plain version) on the card:
@@ -1023,33 +1046,46 @@ def test_rows_linear_kernel(cuda, dtype, out_dtype, tol, n, k, m, with_bias):
     (sums over K in another order)."""
     if out_dtype is not None and with_bias:
         pytest.skip("the lm head has no bias")
-    g = torch.Generator(device=cuda).manual_seed(m * 7 + n + k)
-    x = torch.randn((m, k), generator=g, device=cuda).to(dtype)
-    w = (torch.randn((n, k), generator=g, device=cuda) * k ** -0.5).to(dtype)
-    bias = (torch.randn((n,), generator=g, device=cuda).to(dtype)
-            if with_bias else None)
+    x, w, bias = _linear_inputs(cuda, dtype, m, n, k, with_bias,
+                                m * 7 + n + k)
     before = _lib.launch_counts()["rows_linear"]
     got = rows_linear_cuda.rows_linear(x, w, bias, out_dtype=out_dtype)
     assert _lib.launch_counts()["rows_linear"] == before + 1
     want = rows_linear_cuda.rows_linear_plain(x, w, bias, out_dtype)
-    assert got.dtype == want.dtype and got.shape == want.shape
-    scale = want.float().abs().amax(dim=-1, keepdim=True).clamp_min(1e-3)
-    err = ((got.float() - want.float()).abs() / scale).max().item()
+    err = _linear_err(got, want)
     assert err <= tol, err
+
+
+@pytest.mark.parametrize("m", [1, 8, 40])
+def test_rows_linear_lm_head(cuda, m):
+    """The lm head (51865 x 1024, f32 out from bf16 rows, no bias) at a
+    decode step's rows: within 1e-4 of ``F.linear`` on the f32 casts, and
+    each row alone bit-equal to it among the others."""
+    x, w, _ = _linear_inputs(cuda, torch.bfloat16, m, 51865, 1024, False, m)
+    got = rows_linear_cuda.rows_linear(x, w, out_dtype=torch.float32)
+    want = rows_linear_cuda.rows_linear_plain(x, w, None, torch.float32)
+    err = _linear_err(got, want)
+    assert err <= 1e-4, err
+    for i in {0, m - 1}:
+        alone = rows_linear_cuda.rows_linear(x[i:i + 1], w,
+                                             out_dtype=torch.float32)
+        assert _bits_equal(alone, got[i:i + 1]), i
 
 
 @pytest.mark.parametrize("dtype,out_dtype", [
     (torch.bfloat16, None), (torch.bfloat16, torch.float32),
     (torch.float32, None)])
-@pytest.mark.parametrize("n,k", _LINEAR_SHAPES)
+@pytest.mark.parametrize("n,k", _LINEAR_SHAPES + _WIDTH_SHAPES)
 def test_rows_linear_rows_do_not_depend_on_their_neighbours(cuda, dtype,
                                                             out_dtype, n, k):
     """Row invariance, bit for bit: rows 0 and M-1 of an M-row call equal
-    the same rows alone at M in {1, 2, 5, 8, 16, 40} and at 300 and 1500
-    rows (where one block walks every segment instead of one block a
-    segment), eager and inside a captured CUDA graph."""
+    the same rows alone at M in {1, 2, 5, 8, 16, 32, 33, 40, 64, 65} (a
+    cluster of blocks a tile, one block a segment, or one block walking
+    every segment) and at 300, 768, 1500 and 12,000 rows (tiles of 128 rows
+    walking every segment), eagerly and in a captured CUDA graph replayed
+    twice at a split shape."""
     g = torch.Generator(device=cuda).manual_seed(n + k)
-    x = torch.randn((1500, k), generator=g, device=cuda).to(dtype)
+    x = torch.randn((12000, k), generator=g, device=cuda).to(dtype)
     w = (torch.randn((n, k), generator=g, device=cuda) * k ** -0.5).to(dtype)
     bias = (None if out_dtype is not None else
             torch.randn((n,), generator=g, device=cuda).to(dtype))
@@ -1057,12 +1093,15 @@ def test_rows_linear_rows_do_not_depend_on_their_neighbours(cuda, dtype,
     def run(rows):
         return rows_linear_cuda.rows_linear(rows, w, bias, out_dtype=out_dtype)
 
-    alone = {i: run(x[i:i + 1]) for i in range(40)}
-    alone[299], alone[1499] = run(x[299:300]), run(x[1499:1500])
-    for m in (1, 2, 5, 8, 16, 40, 300, 1500):
+    alone = {}
+    for m in (1, 2, 5, 8, 16, 32, 33, 40, 64, 65, 300, 768, 1500, 12000):
         y = run(x[:m])
         for i in {0, m - 1}:
+            if i not in alone:
+                alone[i] = run(x[i:i + 1])
             assert _bits_equal(y[i:i + 1], alone[i]), (m, i)
+    for i in range(5):
+        alone.setdefault(i, run(x[i:i + 1]))
     static = x[:5].clone()
     out = {}
     out["y"] = run(static)
@@ -1070,10 +1109,71 @@ def test_rows_linear_rows_do_not_depend_on_their_neighbours(cuda, dtype,
     with torch.cuda.graph(graph):
         out["y"] = run(static)
     graph.replay()
-    graph.replay()  # the tile tickets are ready again after each launch
+    graph.replay()
     torch.cuda.synchronize()
     for i in range(5):
         assert _bits_equal(out["y"][i:i + 1], alone[i])
+
+
+def _probe_operands(rng, k, carried):
+    """bf16 x (64, k) and w (128, k) whose entries span 2^-20..2^20, the
+    second half of each row's products cancelling the first half's to a
+    few bits, and an f32 sum to carry in (or None)."""
+    def spread(shape):
+        return (rng.standard_normal(shape) *
+                2.0 ** rng.integers(-20, 21, size=shape))
+
+    x, w = spread((64, k)), spread((128, k))
+    h = k // 2
+    x[:, h:] = -x[:, :h] * (1 + 2.0 ** -7 * rng.integers(-2, 3, (64, h)))
+    w[:, h:] = w[:, :h]
+    c0 = spread((64, 128)).astype(np.float32) if carried else None
+    return x, w, c0
+
+
+_PROBE_FORMS = ("mma.sync m16n8k16", "wgmma m64n8k16, x as A",
+                "wgmma m64n64k16, x as A", "wgmma m64n128k16, x as A",
+                "wgmma m64n64k16, weight as A", "wgmma m64n8k16, weight as A",
+                "wgmma m64n16k16, weight as A", "wgmma m64n32k16, weight as A")
+
+
+@pytest.mark.parametrize("carried", [False, True])
+@pytest.mark.parametrize("steps", [2, 3, 5, 8])
+def test_rows_linear_instruction_numerics(cuda, steps, carried):
+    """The instruction probe (``rows_linear_cuda.instruction_probe``): the
+    same bf16 tiles through ``mma.sync`` m16n8k16, ``wgmma`` with x as A at
+    N = 8, 64 and 128, and ``wgmma`` with the weight as A at N = 64, 8,
+    16 and 32 (x in groups of N rows, as the kernel takes a decode step's
+    rows), chained over
+    ``steps`` k16 steps from zero or from a carried f32 sum. Every form is
+    the product (within 2^-16 of the sum of the terms' sizes, against
+    float64), and every form gives the same bits (an H100 does: so the
+    kernel's regimes may take any of them). Prints, for every pair of
+    forms, how many of the 8192 outputs differ in their bits."""
+    rng = np.random.default_rng(steps * 2 + carried)
+    x, w, c0 = _probe_operands(rng, 16 * steps, carried)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    wb = torch.from_numpy(w).to(torch.bfloat16)
+    c0t = None if c0 is None else torch.from_numpy(c0)
+    got = rows_linear_cuda.instruction_probe(
+        xb.to(cuda), wb.to(cuda), None if c0t is None else c0t.to(cuda))
+    got = got.cpu()
+    x64, w64 = xb.double(), wb.double()
+    ref = x64 @ w64.T + (0 if c0t is None else c0t.double())
+    size = x64.abs() @ w64.abs().T + (0 if c0t is None else
+                                       c0t.double().abs())
+    for f, name in enumerate(_PROBE_FORMS):
+        err = ((got[f].double() - ref).abs() / size).max().item()
+        assert err <= 2.0 ** -16, (name, err)
+    bits = got.view(torch.int32)
+    print(f"\nprobe steps={steps} carried={carried}: outputs whose bits "
+          "differ, of 8192")
+    for a in range(len(_PROBE_FORMS)):
+        print("  " + " ".join(
+            f"{int((bits[a] != bits[b]).sum()):5d}"
+            for b in range(len(_PROBE_FORMS))) + f"  {_PROBE_FORMS[a]}")
+    for f in range(1, len(_PROBE_FORMS)):
+        assert torch.equal(bits[f], bits[0]), _PROBE_FORMS[f]
 
 
 def test_rows_linear_and_dec_attn_refuse_what_the_kernels_do_not_take(cuda):

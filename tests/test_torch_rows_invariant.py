@@ -282,27 +282,42 @@ def recorder(monkeypatch):
     return rec
 
 
+# every decoder linear of Whisper tiny to large-v3 (d 384-1280, the MLP 4d
+# wide) and the lm head of each vocabulary, checked for cover and bounds
+_DECODER_SHAPES = [(n, k, torch.bfloat16, None)
+                   for d in (384, 512, 768, 1024, 1280)
+                   for n, k in ((d, d), (4 * d, d), (d, 4 * d), (51864, d),
+                                (51865, d), (51866, d))]
+
+
 @pytest.mark.parametrize("n,k,dtype,want", [
-    (1024, 1024, torch.bfloat16, (1, 16)),
-    (4096, 1024, torch.bfloat16, (4, 4)),
-    (1024, 4096, torch.bfloat16, (4, 16)),
+    (1024, 1024, torch.bfloat16, (2, 8)),
+    (4096, 1024, torch.bfloat16, (8, 2)),
+    (1024, 4096, torch.bfloat16, (8, 8)),
     (51865, 1024, torch.bfloat16, (16, 1)),
     (1024, 1024, torch.float32, (4, 16)),
     (40, 16, torch.bfloat16, (1, 1)),
-    (384, 1536, torch.bfloat16, (1, 24))])
+    (384, 1536, torch.bfloat16, (3, 8))] + _DECODER_SHAPES)
 def test_segment_plan_covers_k(n, k, dtype, want):
     """Segments of whole 64-deep (bf16) or 16-deep (f32) chunks that cover
-    K exactly once, as many as keep some 256 blocks busy at few rows."""
+    K exactly once; bf16: at most a cluster's 8, as many as put some 128
+    blocks of 64 columns on the card at few rows; f32: some 256 blocks."""
     seg_chunks, n_seg = rows_linear_cuda.plan(n, k, dtype)
     n_chunks = -(-k // rows_linear_cuda.CHUNK[dtype])
-    assert (seg_chunks, n_seg) == want
+    if want is not None:
+        assert (seg_chunks, n_seg) == want
     assert (n_seg - 1) * seg_chunks < n_chunks <= n_seg * seg_chunks
+    if dtype == torch.bfloat16:
+        assert 1 <= n_seg <= min(rows_linear_cuda.CLUSTER, n_chunks)
 
 
 @pytest.mark.parametrize("m,split", [(1, 1), (16, 1), (17, 1), (64, 1),
                                      (65, 1), (256, 1), (300, 0), (1500, 0)])
 def test_rows_linear_splits_by_rows_and_plans_by_the_weight(recorder, m,
                                                             split):
+    """bf16 (1024 x 1024, 2 chunks a segment, 8 segments): split into a
+    cluster a tile up to 256 rows, then 128-row tiles of 64 columns; no
+    partials or tickets in device memory either way."""
     x = torch.zeros((m, 1024), dtype=torch.bfloat16)
     w = torch.zeros((1024, 1024), dtype=torch.bfloat16)
     before = _lib.launch_counts()["rows_linear"]
@@ -312,8 +327,38 @@ def test_rows_linear_splits_by_rows_and_plans_by_the_weight(recorder, m,
     assert y.shape == (m, 1024) and y.dtype == torch.bfloat16
     (name, args), = recorder.calls
     assert name == "wca_rows_linear"
-    assert args[6:14] == (m, 1024, 1024, 1, 16, split, 1, 0)
-    assert (args[4] is None) == (not split)
+    mode = rows_linear_cuda.SPLIT if split else rows_linear_cuda.WIDE_64
+    assert args[6:14] == (m, 1024, 1024, 2, 8, mode, 1, 0)
+    assert args[4] is None and args[5] is None
+
+
+@pytest.mark.parametrize("m,n,k,mode", [
+    (8, 1024, 1024, 1), (32, 1024, 1024, 1), (33, 1024, 1024, 1),
+    (40, 4096, 1024, 1), (64, 4096, 1024, 1), (65, 4096, 1024, 2),
+    (8, 1024, 4096, 1), (8, 51865, 1024, 0), (64, 51865, 1024, 0),
+    (65, 51865, 1024, 3), (768, 1024, 1024, 2), (12000, 1024, 1024, 3),
+    (8, 40, 16, 0), (65, 40, 16, 2)])
+def test_rows_linear_routes_by_rows(m, n, k, mode):
+    """The regime of a bf16 call (0 one block walks every segment, 1 a
+    cluster a tile, 2 and 3 128-row tiles of 64 or 128 columns) and the
+    kernel it names for a trace: by M, the plan by (N, K)."""
+    assert rows_linear_cuda.route(m, n, k, torch.bfloat16) == mode
+    assert rows_linear_cuda.kernel_name(m, n, k, torch.bfloat16) == (
+        "rows_linear_wide_kernel" if mode >= 2 else
+        "rows_linear_narrow_kernel")
+    assert rows_linear_cuda.kernel_name(m, n, k, torch.float32) == (
+        "rows_linear_f32_kernel")
+
+
+def test_rows_linear_f32_split_parks_partials(recorder):
+    """f32 keeps its split: at a step's rows one block a segment, partials
+    (n_seg, M, N) and the tile tickets passed."""
+    x = torch.zeros((8, 1024))
+    w = torch.zeros((1024, 1024))
+    rows_linear_cuda.rows_linear(x, w)
+    (_, args), = recorder.calls
+    assert args[6:14] == (8, 1024, 1024, 4, 16, 1, 0, 1)
+    assert args[4] is not None and args[5] is not None
 
 
 def test_rows_linear_lm_head_arguments(recorder):

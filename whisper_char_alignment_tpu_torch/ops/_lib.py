@@ -84,10 +84,12 @@ _SIGNATURES = {
     # kv_bf16, c_bf16, stream
     "wca_dec_attn": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i64p, _i,
                      _i, _i, _i, _i, _f, _i, _i, _i, _i, _vp],
-    # x, w, bias (or null), out, part, tickets, M, N, K, seg_chunks, n_seg,
-    # split, is_bf16, out_f32, stream
+    # x, w, bias (or null), out, part, tickets (both null but for the f32
+    # split), M, N, K, seg_chunks, n_seg, mode, is_bf16, out_f32, stream
     "wca_rows_linear": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i,
                         _i, _i, _vp],
+    # x, w, c0 (or null), out, k16 steps, stream: the instruction probe
+    "wca_rows_linear_probe": [_vp, _vp, _vp, _vp, _i, _vp],
 }
 
 _lock = threading.Lock()
