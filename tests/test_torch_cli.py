@@ -242,11 +242,12 @@ def test_stage_timers_and_trace(tmp_path):
     for _ in range(2):
         with timers.stage("work", units=4):
             pass
-    assert timers.counts["work"] == 2 and timers.units["work"] == 8
+    work = timers.totals.spans["work"]
+    assert work.calls == 2 and work.units == 8
     assert set(timers.summary()["work"]) == {"total_s", "calls",
                                              "ms_per_call", "units_per_s"}
     timers.reset()
-    assert not timers.totals and not timers.counts
+    assert not timers.totals and not timers.totals.spans
     with profiling.device_trace(None):
         pass
     with pytest.raises(KeyError):

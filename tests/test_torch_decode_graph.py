@@ -397,7 +397,7 @@ def test_stage_timers_resolve_device_events_only_when_read(monkeypatch):
     assert "units_per_s" not in summary["collect sync"]
     assert timers.totals == totals  # resolved once, kept
     timers.reset()
-    assert not timers.totals and not timers.host_totals
+    assert not timers.totals and not timers.totals.spans
 
 
 def test_busy_share_of_a_stub_trace():

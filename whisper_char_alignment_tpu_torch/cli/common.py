@@ -133,10 +133,14 @@ def add_pipeline_flags(parser: argparse.ArgumentParser) -> None:
                              "the decoded one (decode still runs and is "
                              "timed)")
     parser.add_argument("--profile", action="store_true",
-                        help="print per-stage wall-time summary at the end")
+                        help="print the stage profile (seconds by stage, "
+                             "device seconds on a card) and the span "
+                             "profile (kind, host and self seconds, "
+                             "counters) at the end")
     parser.add_argument("--trace_dir", type=str, default=None,
                         help="write a torch.profiler trace (Chrome format) "
-                             "here")
+                             "here and print the card's idle seconds by "
+                             "span")
     parser.add_argument("--multihost", action="store_true",
                         help="join a torch.distributed world and shard the "
                              "scp across its mesh replicas")

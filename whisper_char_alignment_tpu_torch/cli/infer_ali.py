@@ -21,6 +21,12 @@ With several devices (``common.process_world``; JAX ``cli/infer_ali.py:26-60,
 counters are all-reduced, one output stem is broadcast from rank 0, rank 0
 writes the metrics JSON and, with ``--multihost``, each replica's first rank
 its shard's ``-pN`` predictions pkl.
+
+``--profile`` prints the pipeline's stage and span profiles
+(``utils/profiling.StageTimers.report``: each span's kind, ``issue``,
+``wait`` or ``host``, its host and self seconds and counters);
+``--trace_dir`` writes a trace whose ``wca.<span>`` ranges name the spans
+and prints the card's idle seconds by span (``utils/profiling.trace_busy``).
 """
 
 from __future__ import annotations

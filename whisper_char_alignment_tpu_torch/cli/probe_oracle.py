@@ -137,7 +137,8 @@ def infer_dataset(args) -> dict:
         if cfg.use_gt_transcript:
             transcripts = [u.text for u in utts]
         else:
-            with timers.stage("transcripts sync", units=len(utts)):
+            with timers.stage("transcripts sync", units=len(utts),
+                              kind="wait"):
                 results = tp["future"].result()
             transcripts = [r.text for r in results[:len(utts)]]
 
@@ -194,9 +195,11 @@ def infer_dataset(args) -> dict:
         if cp is None:
             return
         prepared, outputs = cp
-        with timers.stage("collect sync", units=len(prepared)):
+        with timers.stage("collect sync", units=len(prepared),
+                          kind="wait"):
             scores_all, jf_all = outputs.result()
-        with timers.stage("host scoring", units=len(prepared)):
+        with timers.stage("host scoring", units=len(prepared),
+                          kind="host"):
             _score_batch(prepared, scores_all, jf_all)
 
     def _score_batch(prepared, scores_all, jf_all):

@@ -36,6 +36,11 @@ each replay (``ops/_lib.add_launches``): ``cross_attn_int8`` then counts
 layers x the steps actually replayed. The warm-up step before a capture
 really launches its kernels and counts as such. :data:`RECORD` keeps the
 captures, warm-up steps, replays and replayed steps.
+
+Inside an open span (``utils/profiling``, the runner's ``decode dispatch``)
+each replay is a child span ``decode replay`` (issue), which holds its
+launches and its :data:`RECORD` counts, and each read of a done flag a
+child span ``decode flag wait`` (wait), which counts one ``host syncs``.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ import numpy as np
 import torch
 
 from ..ops import _lib
+from ..utils import profiling
 from . import decoding
 
 # Steps one replay runs. The host reads the done flag one chunk behind the
@@ -161,18 +167,22 @@ class _Captured:
         n_chunks = -(-max_steps // CHUNK_STEPS)
         flags = []
         for j in range(n_chunks):
-            if kind.refill is not None:
-                for slot in range(CHUNK_STEPS):
-                    kind.refill(self.state, j * CHUNK_STEPS + slot, slot)
-            self.graph.replay()
-            flags.append(_Flag(self.state.done))
+            with profiling.span("decode replay"):
+                if kind.refill is not None:
+                    for slot in range(CHUNK_STEPS):
+                        kind.refill(self.state, j * CHUNK_STEPS + slot, slot)
+                self.graph.replay()
+                flags.append(_Flag(self.state.done))
+                _lib.add_launches(self.launches)
+                RECORD["replays"] += 1
+                RECORD["steps"] += CHUNK_STEPS
             # chunk j runs while the host reads chunk j - 1's flag
-            if j and flags[j - 1].read():
-                break
-        replays = len(flags)
-        _lib.add_launches(self.launches, replays)
-        RECORD["replays"] += replays
-        RECORD["steps"] += replays * CHUNK_STEPS
+            if j:
+                with profiling.span("decode flag wait", kind="wait"):
+                    profiling.count("host syncs")
+                    done = flags[j - 1].read()
+                if done:
+                    break
         return tuple(t.clone() for t in kind.outputs(self.state))
 
 
@@ -220,8 +230,10 @@ def graphed_loop(model, xa: torch.Tensor, prompt: np.ndarray,
 
 def _graphed(model, xa, prompt, suppress_mask, blank_mask, spec, kv_frames,
              kv_int8):
-    st, cross_kv = decoding.loop_setup(model, xa, prompt, suppress_mask,
-                                       blank_mask, spec, kv_frames, kv_int8)
+    with profiling.span("decode prefill"):
+        st, cross_kv = decoding.loop_setup(model, xa, prompt, suppress_mask,
+                                           blank_mask, spec, kv_frames,
+                                           kv_int8)
     key = ("greedy", spec, xa.shape[0], _frames(cross_kv), kv_int8,
            model.dtype)
     tokens, sum_lp, ns_prob, n_steps, margin = replay(

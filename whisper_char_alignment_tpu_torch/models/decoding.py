@@ -43,6 +43,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import profiling
 from . import whisper as wmodel
 
 _NEG_INF = float("-inf")
@@ -422,7 +423,13 @@ def run_eager(model, key, kind: LoopKind, st, kv, max_steps: int,
     version its graph is held against. Takes the graph runner's arguments
     (``model``, ``key``, ``max_steps`` and ``keep`` go unread)."""
     s = 0
-    while not bool(st.done):
+    while True:
+        with profiling.span("decode flag wait", kind="wait"):
+            if st.done.is_cuda:
+                profiling.count("host syncs")
+            done = bool(st.done)
+        if done:
+            break
         for _ in range(chunk):
             slot = s % CHUNK_STEPS
             if kind.refill is not None:
@@ -630,8 +637,9 @@ def _decode_loop(model, xa: torch.Tensor, prompt: np.ndarray,
     without ``kv_frames`` or ``kv_int8``. With ``spec.track_margin`` each
     active sampled step's top1-top2 filtered-logit gap is tracked and
     min_margin is its smallest value per row (+inf otherwise)."""
-    st, cross_kv = loop_setup(model, xa, prompt, suppress_mask, blank_mask,
-                              spec, kv_frames, kv_int8)
+    with profiling.span("decode prefill"):
+        st, cross_kv = loop_setup(model, xa, prompt, suppress_mask,
+                                  blank_mask, spec, kv_frames, kv_int8)
     tokens, sum_lp, ns_prob, n_steps, margin = run_eager(
         model, None, greedy_kind(model, spec), st, cross_kv, 0, chunk)
     return tokens, sum_lp, ns_prob, n_steps, cross_kv, margin
@@ -676,6 +684,7 @@ class DecodeFuture:
     def result(self):
         if self._results is None:
             if self._event is not None:
+                profiling.count("host syncs")
                 self._event.synchronize()
             self._results = self._finalize(*[h.numpy() for h in self._host])
             self._host = None

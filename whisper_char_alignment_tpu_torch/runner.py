@@ -15,9 +15,14 @@ next batch's wire buffer, ``pipeline_depth`` batches keep their decode
 results in flight (``decoding.DecodeFuture``) and one capture + align batch
 stays queued while the host turns the previous one into word times. Uploads
 go through pinned memory without blocking. Results and their order do not
-depend on the depth. Each stage's time is recorded in ``timers``
-(``utils/profiling.StageTimers``: device seconds between CUDA events on a
-card, nothing synchronised); ``stage_seconds`` is its seconds by stage.
+depend on the depth. The main thread's pass is covered by top-level spans
+of ``timers`` (``utils/profiling.StageTimers``: host and self seconds,
+counters, and on a card device seconds between CUDA events, nothing
+synchronised), each of a kind: ``issue`` (mel, encoder, decode dispatch,
+capture pack, capture, align or capture+align, output copies), ``wait``
+(transcripts sync, collect sync) or ``host`` (batch read, wire wait,
+retokenize, word times, loop); ``wire prep`` runs on the wire-prep thread.
+``stage_seconds`` is its seconds by stage.
 
 With ``mesh=`` (``parallel/mesh.py``) the pipeline is one rank of a (data,
 model) mesh: every rank reads every batch, pads it to a multiple of the data
@@ -31,6 +36,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence
@@ -166,6 +172,8 @@ class AlignmentPipeline:
             language=tokenizer.language or "en",
             sample_len=cfg.decode_sample_len or None)
         self.timers = StageTimers(self.device)
+        # batches dispatched so far: the batch index of the spans
+        self._batches_dispatched = 0
         # shape telemetry for the MFU roll-up (utils/flops.py): the padded
         # shapes each batch ran, (b_pad, n_live, kv_frames) per decode and
         # (t_bucket, b_pad, n_live, reused_kv) per capture (JAX runner.py)
@@ -266,20 +274,22 @@ class AlignmentPipeline:
                 int(max_fl), cfg.decode_frame_bucket))
         local = self._local(utts)[0]
         n = len(local)
+        batch = self._batches_dispatched
+        self._batches_dispatched += 1
         if not local:
             return dict(utts=local, future=None, mel=None, xa=None,
-                        cross_kv=None)
+                        cross_kv=None, batch=batch)
         if wire is None:
-            with self.timers.stage("wire prep", n):
+            with self.timers.stage("wire prep", n, kind="host", batch=batch):
                 wire = self._prep_wire(utts)
         utts = local
         n_samples = 2 * self.dims.n_audio_ctx * constants.HOP_LENGTH
-        with self.timers.stage("mel", n):
+        with self.timers.stage("mel", n, batch=batch):
             mel = wire_to_mel(self._upload(wire), self.dims.n_mels,
                               total_samples=n_samples,
                               compute_dtype=self.compute_dtype)
         b_pad = mel.shape[0]
-        with self.timers.stage("encoder", n):
+        with self.timers.stage("encoder", n, batch=batch):
             xa = wmodel.encode_audio(self.model, mel,
                                      device=self.device.type)
         kv_int8 = cfg.decode_kv_int8 or cfg.decode_kv_int8_guarded
@@ -296,7 +306,7 @@ class AlignmentPipeline:
                     * n_live
                     <= int(float(os.environ.get("WCA_REUSE_KV_MAX_BYTES",
                                                 8e9))))
-        with self.timers.stage("decode dispatch", n):
+        with self.timers.stage("decode dispatch", n, batch=batch):
             future, xa, cross_kv = decoding.decode(
                 self.model, self.tokenizer, mel, self.options,
                 return_cross_kv=True, xa=xa, device=self.device.type,
@@ -309,7 +319,7 @@ class AlignmentPipeline:
                 async_results=True)
         self.decode_shapes.append((b_pad, len(utts), kv_frames))
         return dict(utts=utts, future=future, mel=mel, xa=xa,
-                    cross_kv=cross_kv if reuse_kv else None)
+                    cross_kv=cross_kv if reuse_kv else None, batch=batch)
 
     def transcribe_batch(self, utts: Sequence[Utterance]):
         """Synchronous wrapper: (transcripts, mel batch, encoder states);
@@ -334,19 +344,25 @@ class AlignmentPipeline:
         tok = self.tokenizer
         utts = tp["utts"]
         xa = tp["xa"]
+        batch = tp.get("batch")
+        stage = functools.partial(self.timers.stage, batch=batch)
         margins = []
         if self.transcribe_override is not None:
             transcripts = self.transcribe_override(utts)
         elif not utts:
             transcripts = []
         else:
-            with self.timers.stage("transcripts sync", len(utts)):
+            with stage("transcripts sync", len(utts), kind="wait") as span:
                 results = tp["future"].result()
+                # sequence positions reached, less the prompt's before the
+                # first sampled step
+                span.count("decode steps needed",
+                           int(results[0].n_steps) - (self.sot_len - 1))
             transcripts = [r.text for r in results[:len(utts)]]
             margins = [float(r.min_margin) for r in results[:len(utts)]
                        if np.isfinite(r.min_margin)]
 
-        with self.timers.stage("retokenize", len(utts)):
+        with stage("retokenize", len(utts), kind="host"):
             prepared = []
             for u, transcription in zip(utts, transcripts):
                 text_norm = retokenize.remove_punctuation(u.text)
@@ -370,30 +386,31 @@ class AlignmentPipeline:
         live = [p for p in prepared if not p[6]]
         outputs = None
         if live:
-            b_pad = max(self.rows, len(live))
-            t_max = max(len(p[4]) for p in live)
-            t_bucket = min(self.dims.n_text_ctx,
-                           mesh_lib.pad_to_multiple(t_max, self.token_bucket))
-            tokens_arr, token_len, frame_len, xa_idx = pack_fixed_batch(
-                [(p[0], p[4], p[5]) for p in live], utts, b_pad, t_bucket,
-                tok.eot, self.dims.n_audio_ctx)
-            # cross-K/V reuse needs the live rows in decode order
-            cross_kv = tp.get("cross_kv")
-            if cross_kv is not None and not (
-                    xa.shape[0] == b_pad
-                    and np.array_equal(xa_idx[:len(live)],
-                                       np.arange(len(live)))):
-                cross_kv = None
-            dev = self.device
-            xa_live = (None if cross_kv is not None
-                       else xa[self._upload(xa_idx.astype(np.int64))])
-            self.capture_shapes.append((t_bucket, b_pad, len(live),
-                                        cross_kv is not None))
-            token_len_t = self._upload(token_len)
-            frame_len_t = self._upload(frame_len)
-            tokens_t = self._upload(tokens_arr)
+            with stage("capture pack", len(live)):
+                b_pad = max(self.rows, len(live))
+                t_max = max(len(p[4]) for p in live)
+                t_bucket = min(self.dims.n_text_ctx, mesh_lib.pad_to_multiple(
+                    t_max, self.token_bucket))
+                tokens_arr, token_len, frame_len, xa_idx = pack_fixed_batch(
+                    [(p[0], p[4], p[5]) for p in live], utts, b_pad, t_bucket,
+                    tok.eot, self.dims.n_audio_ctx)
+                # cross-K/V reuse needs the live rows in decode order
+                cross_kv = tp.get("cross_kv")
+                if cross_kv is not None and not (
+                        xa.shape[0] == b_pad
+                        and np.array_equal(xa_idx[:len(live)],
+                                           np.arange(len(live)))):
+                    cross_kv = None
+                dev = self.device
+                xa_live = (None if cross_kv is not None
+                           else xa[self._upload(xa_idx.astype(np.int64))])
+                self.capture_shapes.append((t_bucket, b_pad, len(live),
+                                            cross_kv is not None))
+                token_len_t = self._upload(token_len)
+                frame_len_t = self._upload(frame_len)
+                tokens_t = self._upload(tokens_arr)
             if cfg.default_whisper_timing:
-                with self.timers.stage("capture+align", len(live)):
+                with stage("capture+align", len(live)):
                     jump_dev, probs_dev, matrix_dev = \
                         timing.default_find_alignment_batch(
                             self.model, None, tokens_t, token_len_t,
@@ -404,40 +421,48 @@ class AlignmentPipeline:
                 sel = ()
             else:
                 probs_dev = None
-                with self.timers.stage("capture", len(live)):
+                with stage("capture", len(live)):
                     attn, _ = timing.get_attentions(
                         self.model, None, tokens_t, token_len_t, frame_len_t,
                         medfilt_width=cfg.medfilt_width,
                         qk_scale=cfg.qk_scale, return_logits=False,
                         xa=xa_live, cross_kv=cross_kv, device=dev.type)
-                with self.timers.stage("align", len(live)):
+                with stage("align", len(live)):
                     jump_dev, matrix_dev, scores = timing.force_align_batch(
                         attn, token_len_t, frame_len_t, self.sot_len,
                         cfg.aggr, cfg.topk, cfg.w_colnorm, cfg.w_rownorm,
                         cfg.w_coverage)
                     del attn
                 sel = () if scores is None else (scores[1], scores[2])
-            named = dict(jump=jump_dev, probs=probs_dev,
-                         matrix=matrix_dev if return_matrix else None)
-            named.update(zip(("sel0", "sel1"), sel))
-            named = {k: v for k, v in named.items() if v is not None}
-            outputs = decoding.DecodeFuture(
-                list(named.values()),
-                lambda *arrays: dict(zip(named, arrays)))
+            with stage("output copies", len(live)):
+                named = dict(jump=jump_dev, probs=probs_dev,
+                             matrix=matrix_dev if return_matrix else None)
+                named.update(zip(("sel0", "sel1"), sel))
+                named = {k: v for k, v in named.items() if v is not None}
+                outputs = decoding.DecodeFuture(
+                    list(named.values()),
+                    lambda *arrays: dict(zip(named, arrays)))
         return dict(utts=utts, prepared=prepared, live=live, outputs=outputs,
-                    margins=margins)
+                    margins=margins, batch=batch)
 
     def _collect_align(self, ap: dict) -> List[UttAlignment]:
         """Stage 3: wait for the alignment's outputs and turn them into word
         times on the host; under a mesh, gather every data index's in input
         order."""
+        host = {}
+        if ap["outputs"] is not None:
+            with self.timers.stage("collect sync", len(ap["live"]),
+                                   kind="wait", batch=ap.get("batch")):
+                host = ap["outputs"].result()
+        with self.timers.stage("word times", len(ap["prepared"]),
+                               kind="host", batch=ap.get("batch")):
+            return self._word_times(ap, host)
+
+    def _word_times(self, ap: dict, host: dict) -> List[UttAlignment]:
+        """Word times of a collected batch, on the host."""
         cfg = self.cfg
         tok = self.tokenizer
         prepared = ap["prepared"]
-        host = {}
-        if ap["outputs"] is not None:
-            with self.timers.stage("collect sync", len(ap["live"])):
-                host = ap["outputs"].result()
         jump_frames = host.get("jump")
         token_probs = host.get("probs")
         matrix_np = host.get("matrix")
@@ -504,40 +529,59 @@ class AlignmentPipeline:
         flight before the oldest one's transcripts are read; one capture +
         align batch stays queued on the device while the host collects the
         one before it."""
-        order = None
-        if self.cfg.sort_by_duration:
-            from .data.dataset import duration_order
+        timers = self.timers
+        timers.claim()  # this thread issues the pass: it owns the stream
+        loop = functools.partial(timers.stage, "loop", kind="host")
+        with loop():
+            order = None
+            if self.cfg.sort_by_duration:
+                from .data.dataset import duration_order
 
-            order = duration_order(dataset)
-        it = batch_iter(dataset, self.cfg.batch_size, order=order)
-        if progress:
-            try:
-                from tqdm import tqdm
-            except ImportError:
-                pass
-            else:
-                total = -(-len(dataset) // self.cfg.batch_size)
-                it = tqdm(it, total=total)
-        rm = self.cfg.plot
-        depth = max(1, self.cfg.pipeline_depth)
-        transcribed = collections.deque()  # decode results in flight
-        aligned = collections.deque()  # capture + align in flight
-        ex = ThreadPoolExecutor(max_workers=1,
-                                thread_name_prefix="wca-wireprep")
+                order = duration_order(dataset)
+            it = batch_iter(dataset, self.cfg.batch_size, order=order)
+            if progress:
+                try:
+                    from tqdm import tqdm
+                except ImportError:
+                    pass
+                else:
+                    total = -(-len(dataset) // self.cfg.batch_size)
+                    it = tqdm(it, total=total)
+            it = iter(it)
+            rm = self.cfg.plot
+            depth = max(1, self.cfg.pipeline_depth)
+            transcribed = collections.deque()  # decode results in flight
+            aligned = collections.deque()  # capture + align in flight
+            ex = ThreadPoolExecutor(max_workers=1,
+                                    thread_name_prefix="wca-wireprep")
+            # the batch index _dispatch_transcribe gives the next batch
+            next_index = self._batches_dispatched
 
-        def prepped(batches):
-            prev = None
-            for batch in batches:
-                fut = ex.submit(self._prep_wire, batch)
-                if prev is not None:
-                    yield prev
-                prev = (batch, fut)
-            if prev is not None:
-                yield prev
+        def prep(batch, i):
+            with timers.stage("wire prep", len(batch), kind="host", batch=i):
+                return self._prep_wire(batch)
+
+        def read():
+            """The next batch and its wire buffer's future (its prep
+            started), or None after the last."""
+            nonlocal next_index
+            with timers.stage("batch read", kind="host", batch=next_index):
+                batch = next(it, None)
+                if batch is None:
+                    return None
+                next_index += 1
+                return batch, ex.submit(prep, batch, next_index - 1)
+
+        def collected(ap):
+            out = self._collect_align(ap)
+            with loop():  # the caller holds the pass at each yield
+                yield from out
 
         try:
-            for batch, wire_fut in prepped(it):
-                with self.timers.stage("wire wait", len(batch)):
+            ahead = read()
+            while ahead is not None:
+                (batch, wire_fut), ahead = ahead, read()
+                with timers.stage("wire wait", len(batch), kind="host"):
                     wire = wire_fut.result()
                 transcribed.append(self._dispatch_transcribe(batch,
                                                              wire=wire))
@@ -545,13 +589,14 @@ class AlignmentPipeline:
                     aligned.append(self._dispatch_align(
                         transcribed.popleft(), return_matrix=rm))
                 while len(aligned) > 1:
-                    yield from self._collect_align(aligned.popleft())
+                    yield from collected(aligned.popleft())
             while transcribed:
                 aligned.append(self._dispatch_align(transcribed.popleft(),
                                                     return_matrix=rm))
                 while len(aligned) > 1:
-                    yield from self._collect_align(aligned.popleft())
+                    yield from collected(aligned.popleft())
             while aligned:
-                yield from self._collect_align(aligned.popleft())
+                yield from collected(aligned.popleft())
         finally:
-            ex.shutdown(wait=True, cancel_futures=True)
+            with loop():
+                ex.shutdown(wait=True, cancel_futures=True)

@@ -6,6 +6,8 @@ from typing import Callable, Optional, Union
 
 import torch
 
+from . import profiling
+
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
@@ -35,7 +37,10 @@ def per_utterance(fn: Callable[[torch.Tensor], torch.Tensor],
     """``fn`` over x (B, ...) called on one utterance at a time on a card,
     at one call shape whatever B: the library chooses a product's or a
     convolution's kernel by the whole call's shape, so a batch's rows would
-    be summed in orders that depend on B. One call on the CPU."""
+    be summed in orders that depend on B. One call on the CPU. Counts its
+    calls of ``fn`` as ``encoder calls`` in the open span."""
     if x.device.type != "cuda" or x.shape[0] == 1:
+        profiling.count("encoder calls")
         return fn(x)
+    profiling.count("encoder calls", x.shape[0])
     return torch.cat([fn(x[i:i + 1]) for i in range(x.shape[0])])
