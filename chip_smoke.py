@@ -405,8 +405,10 @@ def check(cond: bool, what: str) -> None:
 
 # the decoder's row-invariant kernels: their launches are derived exactly
 # on the main path (``decoder_launches``); a path that derives only its
-# other kernels leaves them None in its expected counts
-DECODER_KERNELS = ("dec_attn", "rows_linear")
+# other kernels leaves them None in its expected counts. The calls of
+# ``dec_attn`` that stage a cache unaligned (an odd length) are never
+# derived: they follow the cache's length
+DECODER_KERNELS = ("dec_attn", "dec_attn_unaligned", "rows_linear")
 
 
 def expect_base() -> dict:
@@ -964,9 +966,18 @@ def decoder_rows(gen):
 
     # -- dec_attn: (label, B, P, S, K/V laid out as the cache or as a
     # transposed projection, masked, K scaled, scores kept)
+    # the benchmark's self steps: caches 35 and 99 columns long (staged
+    # unaligned), beside 40 and 104 (16-byte rows); its cross steps
     cases = (("cross step", 8, 1, 1500, "cache", False, True, False),
              ("cross step B=1", 1, 1, 1500, "cache", False, True, False),
              ("self step", 8, 1, 48, "cache", True, True, False),
+             ("self step B=32 S=35", 32, 1, 35, "cache", True, True, False),
+             ("self step B=32 S=40", 32, 1, 40, "cache", True, True, False),
+             ("self step B=16 S=99", 16, 1, 99, "cache", True, True, False),
+             ("self step B=16 S=104", 16, 1, 104, "cache", True, True,
+              False),
+             ("cross step B=16", 16, 1, 1500, "cache", False, True, False),
+             ("cross step B=32", 32, 1, 1500, "cache", False, True, False),
              ("window", 1, 5, 448, "cache", True, True, False),
              ("capture cross", 8, 96, 1500, "proj", False, False, True),
              ("capture self", 8, 96, 96, "proj", True, False, False))
@@ -1672,7 +1683,7 @@ def guarded_phase(model, tok, dataset, card: str) -> None:
             results = pipe.align_batch(batch)
         counts = _lib.launch_counts()
         flag_rate = pipe.flag_rate()
-    expect = dict.fromkeys(counts, 0)
+    expect = expect_base()
     layers = model.dims.n_text_layer
     expect.update(encoder_attn=model.dims.n_audio_layer, qkpost=layers,
                   dtw_trace=1, dtw_backtrace=1, mel=1, mel_clip=1,
@@ -3998,7 +4009,7 @@ def main_path_phase(card: str):
 
     def expected(**extra):
         def fn(seen):
-            out = dict.fromkeys(_lib.LAUNCHES, 0)
+            out = expect_base()
             out.update(encoder_attn=dims.n_audio_layer * n_batches,
                        qkpost=dims.n_text_layer * n_batches,
                        dtw_trace=n_batches, dtw_backtrace=n_batches)

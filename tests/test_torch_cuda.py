@@ -528,9 +528,12 @@ def test_graphed_transcribe_equals_the_eager_loops(cuda, aggr, monkeypatch):
                                                    + len(captures)),
                 qkpost=dims.n_text_layer * len(captures),
                 dtw_trace=len(captures), dtw_backtrace=len(captures))
-    # the decoder's attention and linears run in every decode and capture
+    # the decoder's attention and linears run in every decode and capture;
+    # some of the attention's calls stage an odd-length cache unaligned
     assert counts["dec_attn"] > 0 and counts["rows_linear"] > 0
+    assert counts["dec_attn_unaligned"] <= counts["dec_attn"]
     want.update(dec_attn=counts["dec_attn"],
+                dec_attn_unaligned=counts["dec_attn_unaligned"],
                 rows_linear=counts["rows_linear"])
     assert counts == want
     assert requests[0] == "detect" and len(captures) >= 1
@@ -830,7 +833,12 @@ def _attn_inputs(cuda, b, h, p, s, hd, kv_dtype, dtype, layout, seed):
     (1, 2, 17, 200, 16, "proj", True, False),
     (1, 2, 5, 129, 128, "proj", False, False),
     (1, 2, 5, 300, 256, "cache", True, True),
-    (1, 2, 5, 300, 256, "proj", True, False)])
+    (1, 2, 5, 300, 256, "proj", True, False),
+    # caches an odd number of columns long, staged unaligned: the
+    # benchmark's self steps (35, 99) and long form's (227, two chunks)
+    (32, 16, 1, 35, 64, "cache", True, True),
+    (16, 16, 1, 99, 64, "cache", True, True),
+    (8, 16, 1, 227, 64, "cache", True, True)])
 def test_dec_attn_kernel(cuda, dtype, kv_dtype, b, h, p, s, hd, layout,
                          masked, scaled):
     """The decoder attention against its plain version (the port's
@@ -854,6 +862,50 @@ def test_dec_attn_kernel(cuda, dtype, kv_dtype, b, h, p, s, hd, layout,
     no_scores = dec_attn_cuda.dec_attn(q, k, v, dtype=dtype, mask=mask,
                                        k_scale=scale)
     assert no_scores[1] is None and _bits_equal(no_scores[0], got)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("p", [1, 3])
+@pytest.mark.parametrize("s", [35, 99, 227])
+def test_dec_attn_an_odd_cache_equals_its_aligned_copy(cuda, dtype, p, s):
+    """A contiguous (B, H, hd, S) cache of an odd length S, whose bf16 rows
+    no 4-byte piece keeps aligned, gives the output and scores, bit for
+    bit, of the same values held as the first S columns of a wider buffer
+    whose rows are 16-byte aligned; only the first call counts
+    ``dec_attn_unaligned`` (bf16), and a projection's layout never does."""
+    b, h, hd = 4, 4, 64
+    q, k, v, mask = _attn_inputs(cuda, b, h, p, s, hd, dtype, dtype, "cache",
+                                 s + p)
+    wide = -(-s // 8) * 8 + 8
+
+    def aligned(t):
+        buf = torch.randn((b, h, hd, wide), device=cuda).to(dtype)
+        buf[..., :s] = t
+        return buf[..., :s]
+
+    def run(kk, vv):
+        before = _lib.launch_counts()
+        got = dec_attn_cuda.dec_attn(q, kk, vv, dtype=dtype, mask=mask,
+                                     k_scale=hd ** -0.25, scores=True)
+        after = _lib.launch_counts()
+        return got, {n: after[n] - before[n]
+                     for n in ("dec_attn", "dec_attn_unaligned")}
+
+    (out, sc), counted = run(k, v)
+    assert counted == dict(dec_attn=1,
+                           dec_attn_unaligned=int(dtype == torch.bfloat16))
+    (want, want_sc), counted = run(aligned(k), aligned(v))
+    assert counted == dict(dec_attn=1, dec_attn_unaligned=0)
+    assert _bits_equal(out, want) and _bits_equal(sc, want_sc)
+    proj = [t.transpose(-1, -2).contiguous().transpose(-1, -2)
+            for t in (k, v)]
+    (got, _), counted = run(*proj)
+    assert counted == dict(dec_attn=1, dec_attn_unaligned=0)
+    ref, _ = dec_attn_cuda.dec_attn_plain(q, k, v, dtype=dtype, mask=mask,
+                                          k_scale=hd ** -0.25)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -414,6 +414,84 @@ def test_dec_attn_arguments(recorder, p):
     assert args[15:20] == (1.0, 0, 0, 1, 1)
 
 
+def _counted_dec_attn(q, k, v, dtype):
+    before = _lib.launch_counts()
+    out = dec_attn_cuda.dec_attn(q, k, v, dtype=dtype, k_scale=0.125)
+    after = _lib.launch_counts()
+    return out, {n: after[n] - before[n]
+                 for n in ("dec_attn", "dec_attn_unaligned")}
+
+
+@pytest.mark.parametrize("s,layout,dtype,unaligned", [
+    # bf16 caches whose rows are 70, 198 and 454 bytes apart: no 4-byte
+    # piece keeps them aligned
+    (35, "cache", torch.bfloat16, 1), (99, "cache", torch.bfloat16, 1),
+    (227, "cache", torch.bfloat16, 1),
+    # 16-byte (40, 104), 8-byte (36, 1500) and 4-byte (34) rows
+    (40, "cache", torch.bfloat16, 0), (104, "cache", torch.bfloat16, 0),
+    (36, "cache", torch.bfloat16, 0), (1500, "cache", torch.bfloat16, 0),
+    (34, "cache", torch.bfloat16, 0),
+    # a projection's rows are hd long; f32 rows are 4-byte aligned
+    (35, "proj", torch.bfloat16, 0), (99, "proj", torch.bfloat16, 0),
+    (35, "cache", torch.float32, 0), (99, "cache", torch.float32, 0)])
+def test_dec_attn_counts_the_calls_it_stages_unaligned(recorder, s, layout,
+                                                       dtype, unaligned):
+    """``dec_attn_unaligned`` rises with ``dec_attn`` exactly when the
+    kernel's ``piece_width`` finds K's or V's rows 2-byte aligned alone,
+    and the library gets the same arguments either way: the strides as
+    they are, the shapes, the scale and the flags."""
+    b, h, p, hd = 2, 3, 1, 64
+    q = torch.zeros((b, p, h, hd), dtype=dtype).transpose(1, 2)
+    if layout == "cache":
+        k = torch.zeros((b, h, hd, s), dtype=dtype)
+    else:
+        k = torch.zeros((b, h, s, hd), dtype=dtype).transpose(-1, -2)
+    _, counted = _counted_dec_attn(q, k, k, dtype)
+    assert counted == dict(dec_attn=1, dec_attn_unaligned=unaligned)
+    (name, args), = recorder.calls
+    assert name == "wca_dec_attn"
+    assert list(args[9]) == [*q.stride()[:3], *k.stride(), *k.stride()]
+    bf = int(dtype == torch.bfloat16)
+    assert args[10:20] == (b, h, p, s, hd, 0.125, 1, 0, bf, bf)
+
+
+def test_dec_attn_counts_an_unaligned_base_or_query(recorder):
+    """The rows' start counts too: a cache 40 columns wide (16-byte rows)
+    read from its second column, or a query whose rows are an odd number of
+    elements apart; V alone unaligned is enough."""
+    bf = torch.bfloat16
+    q = torch.zeros((2, 3, 1, 64), dtype=bf)
+    wide = torch.zeros((2, 3, 64, 40), dtype=bf)
+    strides = dec_attn_cuda._panel_strides(wide)
+    assert strides == (3 * 64 * 40, 64 * 40, 40)
+    assert dec_attn_cuda.staged_unaligned(wide[..., 1:36], strides)
+    assert not dec_attn_cuda.staged_unaligned(wide[..., 2:36], strides)
+    assert not dec_attn_cuda.staged_unaligned(wide.float()[..., 1:36],
+                                              strides)
+    _, counted = _counted_dec_attn(q, wide[..., :35], wide[..., 1:36], bf)
+    assert counted == dict(dec_attn=1, dec_attn_unaligned=1)
+    _, counted = _counted_dec_attn(q, wide[..., 2:37], wide[..., :35], bf)
+    assert counted == dict(dec_attn=1, dec_attn_unaligned=0)
+    odd_q = torch.zeros((2, 3, 1, 65), dtype=bf)[..., :64]
+    _, counted = _counted_dec_attn(odd_q, wide[..., :40], wide[..., :40], bf)
+    assert counted == dict(dec_attn=1, dec_attn_unaligned=1)
+    assert len(recorder.calls) == 3
+
+
+def test_time_dec_attn_needs_a_card(monkeypatch, capsys):
+    """The timing program exits 1 with no stdout where no card is; its
+    self steps hold the odd cache lengths and the aligned ones beside
+    them, and its bit cases hold each odd length in both layouts' reach."""
+    from whisper_char_alignment_tpu_torch.scripts import time_dec_attn
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert time_dec_attn.main(["--iters", "1"]) == 1
+    assert capsys.readouterr().out == ""
+    lengths = {s for _, _, _, s, _, _ in time_dec_attn.SHAPES}
+    assert {35, 40, 99, 104, 227, 1500} <= lengths
+    assert {35, 99, 227} <= {c[3] for c in time_dec_attn.BITS}
+
+
 def test_dec_attn_splits_the_keys_into_chunks(recorder):
     """Past one chunk of 128 keys the scores' workspace, the chunks' terms,
     the partials and the tile tickets are passed (enough tickets for every

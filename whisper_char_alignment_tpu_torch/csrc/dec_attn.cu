@@ -25,13 +25,20 @@
 //   query rows into tiles of 16; a block of 4 warps takes one (query tile,
 //   chunk, batch item x head). K and V chunks are staged in shared memory by
 //   cp.async, in 16-, 8- or 4-byte pieces along whichever axis has stride 1
-//   (S in the cache layout, hd in a projection's). bf16 products are
-//   mma.sync.m16n8k16 (bf16 in, f32 sums): the scores over hd in rising
-//   16-deep steps from zero, K' rounded in the fragment; P.V over a chunk's
-//   keys in rising order from zero. Per row and chunk: the scores plus the
-//   mask; m_c and l_c = sum exp(s - m_c) (each warp's 32 keys, then the 4
-//   warps in order); M and L = sum_c l_c exp(m_c - M) folded in rising chunk
-//   order; the weights the plain version's dtype(exp(s - M) / L),
+//   (S in the cache layout, hd in a projection's). A bf16 cache an odd
+//   number of columns long (35 at a TIMIT decode's cap, 99 at a
+//   LibriSpeech one's, 227 in long form) keeps no row 4-byte aligned: the
+//   16-byte words that hold its rows land by cp.async in the rows' places,
+//   then a thread a row shifts each into place (stage_unaligned). Staged
+//   one 2-byte load after another (128 a thread for K and V), such a self
+//   step took 61-66 us on an H100 at B=16 S=99 and B=32 S=35, against 9.4
+//   and 10.4 us at S=104 and 40; staged so, 10.8 and 11.2 us. bf16
+//   products are mma.sync.m16n8k16 (bf16 in, f32 sums): the scores over hd
+//   in rising 16-deep steps from zero, K' rounded in the fragment; P.V over
+//   a chunk's keys in rising order from zero. Per row and chunk: the scores
+//   plus the mask; m_c and l_c = sum exp(s - m_c) (each warp's 32 keys, then
+//   the 4 warps in order); M and L = sum_c l_c exp(m_c - M) folded in rising
+//   chunk order; the weights the plain version's dtype(exp(s - M) / L),
 //   normalised then rounded; the chunks' f32 P.V partials added in rising
 //   chunk order, rounded once.
 //   - S in one chunk (a decode step's self-attention, a transcript's): one
@@ -88,7 +95,7 @@ struct Args {
   int n_head, n_rows, n_keys, hd, n_chunks;
   float k_scale;
   int has_scale, want_scores;
-  int qw, kw, vw;  // copy widths in bytes (16, 8, 4; 2: plain loads)
+  int qw, kw, vw;  // copy widths in bytes (16, 8, 4; 2: stage_unaligned)
 };
 
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
@@ -161,24 +168,123 @@ __device__ __forceinline__ float ex(float x) {
   return exp2f(x * 1.4426950408889634f);
 }
 
+// Panels whose 2-byte rows no piece of 4 bytes or more keeps aligned (a
+// cache an odd number of columns long, its rows starting 2 bytes off 4) go
+// in two steps:
+// - stage_unaligned: the 16-byte words of global memory that hold a row's
+//   valid elements land by cp.async in the row's own place in shared memory
+//   (they fit: a row is n_inner + kPad elements, and the words n_inner / 8
+//   + 1 at most), word j in piece j, so that a warp's copies are as
+//   contiguous as stage's aligned ones; the pieces past them are zeroed;
+// - settle_unaligned, once every copy has landed (a barrier, since other
+//   threads asked for them): a thread a row, thread `first` taking row 0,
+//   shifts its row down by the row's offset into its first word (8, 4 and 2
+//   bytes, as the offset's bits ask), a 16-byte piece at a time from the
+//   first, so each word is read before it is written over, and zeroes what
+//   lies past the valid elements.
+// The bytes end where stage's aligned paths put them.
+__device__ __forceinline__ int row_offset(const void* row) {
+  return static_cast<int>(reinterpret_cast<uintptr_t>(row) & 15);
+}
+
+// 16-byte words that hold a row's first `valid` 2-byte elements.
+__device__ __forceinline__ int row_words(int offset, int valid) {
+  return valid > 0 ? (offset + 2 * valid + 15) >> 4 : 0;
+}
+
+template <typename T>
+__device__ __forceinline__ void stage_unaligned(T* sm, int ld, const T* g,
+                                                long long stride, int n_outer,
+                                                int n_inner, int valid_outer,
+                                                int valid_inner) {
+  const int pieces = n_inner / 8;
+  const int valid = max(0, min(n_inner, valid_inner));
+  // word j of row o into piece j, zeros past the row's words; the last
+  // piece's thread also lands the word past it (the pad) where there is one
+  auto put = [&](int o, int j) {
+    const char* row = reinterpret_cast<const char*>(g + o * stride);
+    const int sh = row_offset(row);
+    const int n_words = o < valid_outer ? row_words(sh, valid) : 0;
+    const void* word = row - sh + 16 * j;
+    T* dst = sm + o * ld + 8 * j;
+    wca::cp_async<16>(dst, j < n_words ? word : g, j < n_words ? 16 : 0);
+    if (j == pieces - 1 && n_words > pieces)
+      wca::cp_async<16>(dst + 8, row - sh + 16 * (j + 1), 16);
+  };
+  if (kThreads % pieces == 0) {
+    const int step = kThreads / pieces, o0 = threadIdx.x / pieces;
+    const int j = threadIdx.x - o0 * pieces;
+    for (int o = o0; o < n_outer; o += step) put(o, j);
+    return;
+  }
+  for (int i = threadIdx.x; i < n_outer * pieces; i += kThreads)
+    put(i / pieces, i % pieces);
+}
+
+template <typename T>
+__device__ __forceinline__ void settle_unaligned(T* sm, int ld, const T* g,
+                                                 long long stride,
+                                                 int n_outer, int n_inner,
+                                                 int valid_outer,
+                                                 int valid_inner, int first) {
+  static_assert(sizeof(T) == 2, "2-byte elements only");
+  const int valid = max(0, min(n_inner, valid_inner));
+  const int n_pieces = (valid + 7) / 8;  // pieces with a valid element
+  const uint4 zeros = make_uint4(0, 0, 0, 0);
+  const int o0 =
+      ((static_cast<int>(threadIdx.x) - first) % kThreads + kThreads) %
+      kThreads;
+  for (int o = o0; o < min(n_outer, valid_outer); o += kThreads) {
+    const int sh = row_offset(g + o * stride);
+    const int n_words = row_words(sh, valid);
+    uint4* row = reinterpret_cast<uint4*>(sm + o * ld);
+    uint4 lo = n_words > 0 ? row[0] : zeros;
+#pragma unroll 4
+    for (int j = 0; j < n_pieces; ++j) {
+      const uint4 hi = j + 1 < n_words ? row[j + 1] : zeros;
+      uint32_t w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+      for (int i = 0; i < 6; ++i) w[i] = (sh & 8) ? w[i + 2] : w[i];
+#pragma unroll
+      for (int i = 0; i < 5; ++i) w[i] = (sh & 4) ? w[i + 1] : w[i];
+      uint32_t p[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int e = 8 * j + 2 * k;  // this word's elements: e, e + 1
+        const uint32_t x = __funnelshift_r(w[k], w[k + 1], (sh & 2) * 8);
+        p[k] = e + 1 < valid ? x : e < valid ? x & 0xffffu : 0u;
+      }
+      row[j] = make_uint4(p[0], p[1], p[2], p[3]);
+      lo = hi;
+    }
+    // the word past the valid pieces landed with the row's tail
+    if (n_words > n_pieces && n_pieces < n_inner / 8) row[n_pieces] = zeros;
+  }
+}
+
 // An n_outer x n_inner panel (inner axis contiguous in global memory, outer
 // rows `stride` elements apart) into shared rows of `ld` elements, by
-// cp.async pieces of `width` bytes, or by plain loads when width is one
-// element. Elements past (valid_outer, valid_inner) are zero-filled and
-// nothing past them is read. n_inner is a multiple of 8.
+// cp.async pieces of `width` bytes; width 2 (no piece of 4 bytes or more
+// keeps every row aligned): stage_unaligned, which put_panel<true>
+// finishes.
+// Elements past (valid_outer, valid_inner) end zero, and nothing outside
+// the 16-byte words that hold the valid ones is read. n_inner is a
+// multiple of 8, ld at least n_inner + 8.
 template <typename T>
 __device__ __forceinline__ void stage(T* sm, int ld, const T* g,
                                       long long stride, int n_outer,
                                       int n_inner, int valid_outer,
                                       int valid_inner, int width) {
   constexpr int kElem = sizeof(T);
+  if (width < 4) {
+    stage_unaligned(sm, ld, g, stride, n_outer, n_inner, valid_outer,
+                    valid_inner);
+    return;
+  }
   const int per = width / kElem;
   const int pieces = n_inner / per;
   auto put = [&](T* dst, const T* src, int valid) {
-    if (width >= 4)
-      wca::cp_async_w(dst, valid ? src : g, width, valid * kElem);
-    else
-      *dst = valid ? src[0] : zero<T>();
+    wca::cp_async_w(dst, valid ? src : g, width, valid * kElem);
   };
   if (kThreads % pieces == 0) {
     // a thread keeps one piece of the row and walks the rows: the piece's
@@ -200,6 +306,32 @@ __device__ __forceinline__ void stage(T* sm, int ld, const T* g,
     put(sm + o * ld + e0, g + o * stride + e0,
         o < valid_outer ? max(0, min(per, valid_inner - e0)) : 0);
   }
+}
+
+// Whether some panel of the call is staged unaligned, so that it has to be
+// shifted once its copies land (put_panel<true>; the same in every thread
+// of the grid).
+__device__ __forceinline__ bool unaligned(const Args& a) {
+  return a.qw < 4 || a.kw < 4 || a.vw < 4;
+}
+
+// stage, or (kSettle) its second step, by one set of arguments: once
+// every thread's copies have landed and before the panel is read, the
+// unaligned path's shift, its rows taken by the threads from `first` on;
+// nothing on the aligned paths.
+template <bool kSettle, typename T>
+__device__ __forceinline__ void put_panel(T* sm, int ld, const T* g,
+                                          long long stride, int n_outer,
+                                          int n_inner, int valid_outer,
+                                          int valid_inner, int width,
+                                          int first) {
+  if constexpr (!kSettle)
+    stage(sm, ld, g, stride, n_outer, n_inner, valid_outer, valid_inner,
+          width);
+  else if constexpr (sizeof(T) == 2)
+    if (width < 4)
+      settle_unaligned(sm, ld, g, stride, n_outer, n_inner, valid_outer,
+                       valid_inner, first);
 }
 
 // A row's chunk terms from the 4 warps' (m_w, l_w), in warp order:
@@ -405,30 +537,36 @@ __host__ __device__ constexpr int panel_bf16(bool cache, int hdp) {
 }
 constexpr int kWTileBf16 = kTile * kLdW;
 
-template <bool kCache>
+// Q's and K's panels: staged, or (kSettle) settled once their copies have
+// landed.
+template <bool kCache, bool kSettle = false>
 __device__ __forceinline__ void stage_qk_bf16(const Args& a, const Place& at,
                                               bf* qs, bf* ksm, int hdp) {
-  stage(qs, hdp + kPad,
-        static_cast<const bf*>(a.q) + at.b * a.qb + at.h * a.qh +
-            at.p0 * a.qp,
-        a.qp, at.rows, hdp, at.rows, a.hd, a.qw);
+  put_panel<kSettle>(qs, hdp + kPad,
+      static_cast<const bf*>(a.q) + at.b * a.qb + at.h * a.qh + at.p0 * a.qp,
+      a.qp, at.rows, hdp, at.rows, a.hd, a.qw, 0);
   const bf* kg = static_cast<const bf*>(a.k) + at.b * a.kb + at.h * a.kh;
   if (kCache)
-    stage(ksm, kLdW, kg + at.c0, a.kd, hdp, kChunk, a.hd, at.cols, a.kw);
+    put_panel<kSettle>(ksm, kLdW, kg + at.c0, a.kd, hdp, kChunk, a.hd,
+                       at.cols, a.kw, 0);
   else
-    stage(ksm, hdp + kPad, kg + at.c0 * a.ks, a.ks, kChunk, hdp, at.cols,
-          a.hd, a.kw);
+    put_panel<kSettle>(ksm, hdp + kPad, kg + at.c0 * a.ks, a.ks, kChunk, hdp,
+                       at.cols, a.hd, a.kw, 0);
 }
 
-template <bool kCache>
+// V's panel, as stage_qk_bf16. `first`: the thread that settles V's row 0
+// where its rows are staged unaligned (dec_attn_one: the thread after K's
+// rows, so that K's rows and V's are settled by different threads).
+template <bool kCache, bool kSettle = false>
 __device__ __forceinline__ void stage_v_bf16(const Args& a, const Place& at,
-                                             bf* vsm, int hdp) {
+                                             bf* vsm, int hdp, int first) {
   const bf* vg = static_cast<const bf*>(a.v) + at.b * a.vb + at.h * a.vh;
   if (kCache)
-    stage(vsm, kLdW, vg + at.c0, a.vd, hdp, kChunk, a.hd, at.cols, a.vw);
+    put_panel<kSettle>(vsm, kLdW, vg + at.c0, a.vd, hdp, kChunk, a.hd,
+                       at.cols, a.vw, first);
   else
-    stage(vsm, hdp + kPad, vg + at.c0 * a.vs, a.vs, kChunk, hdp, at.cols,
-          a.hd, a.vw);
+    put_panel<kSettle>(vsm, hdp + kPad, vg + at.c0 * a.vs, a.vs, kChunk, hdp,
+                       at.cols, a.hd, a.vw, first);
 }
 
 // The tile's scores over the chunk, masked: warp w holds keys [32w, 32w +
@@ -583,6 +721,10 @@ __global__ void __launch_bounds__(kThreads)
   stage_qk_bf16<kCache>(a, at, qs, ksm, hdp);
   wca::cp_async_commit();
   wca::cp_async_wait<0>();
+  if (unaligned(a)) {
+    __syncthreads();
+    stage_qk_bf16<kCache, true>(a, at, qs, ksm, hdp);
+  }
   __syncthreads();
   float acc[4][4];
   scores_bf16<kCache>(a, at, qs, ksm, hdp, acc);
@@ -602,7 +744,7 @@ __global__ void __launch_bounds__(kThreads)
   const int hdp = (a.hd + 15) & ~15;
   bf* wsm = reinterpret_cast<bf*>(smem);
   bf* vsm = wsm + kWTileBf16;
-  if (chunk_visible(a, at)) stage_v_bf16<kCache>(a, at, vsm, hdp);
+  if (chunk_visible(a, at)) stage_v_bf16<kCache>(a, at, vsm, hdp, 0);
   wca::cp_async_commit();
   wait_for_scores();
   if (threadIdx.x < kTile)
@@ -618,6 +760,10 @@ __global__ void __launch_bounds__(kThreads)
       wsm[r * kLdW + c] = weight<bf>(at, rt, r, c, s);
     }
     wca::cp_async_wait<0>();
+    if (unaligned(a)) {
+      __syncthreads();
+      stage_v_bf16<kCache, true>(a, at, vsm, hdp, 0);
+    }
     __syncthreads();
     pv_bf16<bf, kCache>(a, at, rt, wsm, vsm, hdp);
   }
@@ -642,10 +788,16 @@ __global__ void __launch_bounds__(kThreads)
   bf* ksm = qs + q_tile_bf16(hdp);
   bf* wsm = ksm + panel_bf16(kKCache, hdp);
   bf* vsm = wsm + kWTileBf16;
+  const int v_first = kKCache ? hdp : kChunk;
   stage_qk_bf16<kKCache>(a, at, qs, ksm, hdp);
-  stage_v_bf16<kVCache>(a, at, vsm, hdp);
+  stage_v_bf16<kVCache>(a, at, vsm, hdp, v_first);
   wca::cp_async_commit();
   wca::cp_async_wait<0>();
+  if (unaligned(a)) {
+    __syncthreads();
+    stage_qk_bf16<kKCache, true>(a, at, qs, ksm, hdp);
+    stage_v_bf16<kVCache, true>(a, at, vsm, hdp, v_first);
+  }
   __syncthreads();
   float acc[4][4];
   scores_bf16<kKCache>(a, at, qs, ksm, hdp, acc);

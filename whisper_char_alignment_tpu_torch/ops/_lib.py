@@ -18,6 +18,9 @@ went through the kernels (``reset_launches`` / ``launch_counts``). A CUDA
 graph replays kernels without calling their wrappers: the decode graph
 (``models/decode_graph.py``) takes back what its capture counted and adds
 it again at each replay (``add_launches``), so the counts stay exact.
+``dec_attn_unaligned`` is no kernel of its own: it counts the ``dec_attn``
+calls whose K or V panels the kernel stages unaligned (a bf16 cache an odd
+number of columns long).
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ LAUNCHES: Dict[str, int] = {
     "dtw_trace": 0,
     "dtw_backtrace": 0, "cross_attn_int8": 0, "cross_attn": 0, "mel": 0,
     "mel_clip": 0, "int8_quant": 0, "int8_dequant": 0, "dec_attn": 0,
-    "rows_linear": 0}
+    "dec_attn_unaligned": 0, "rows_linear": 0}
 
 _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _i64p = ctypes.POINTER(ctypes.c_longlong)

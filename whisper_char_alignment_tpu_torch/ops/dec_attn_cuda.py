@@ -122,6 +122,25 @@ def _unit_stride(t: torch.Tensor) -> torch.Tensor:
     return t if 1 in t.stride()[-2:] else t.contiguous()
 
 
+def _panel_strides(t: torch.Tensor) -> Tuple[int, int, int]:
+    """K's or V's strides that ``piece_width`` checks: the item's, the
+    head's, and the one between a panel's rows (hd's in the cache layout,
+    whose stride along S is 1; else S's)."""
+    st = t.stride()
+    return st[0], st[1], st[2] if st[3] == 1 else st[3]
+
+
+def staged_unaligned(t: torch.Tensor, strides) -> bool:
+    """Whether the kernel stages ``t``'s panels unaligned
+    (``csrc/dec_attn.cu`` ``stage_unaligned``): 2-byte elements whose base or
+    one of ``strides`` (in elements: the item's, the head's and the one
+    between the panel's rows) keeps no piece of 4 bytes aligned, as
+    ``piece_width`` finds; a bf16 cache an odd number of columns long."""
+    if t.element_size() != 2:
+        return False
+    return t.data_ptr() % 4 != 0 or any(s * 2 % 4 for s in strides)
+
+
 def dec_attn(q, k, v, *, dtype: torch.dtype,
              mask: Optional[torch.Tensor] = None,
              k_scale: Optional[float] = None, scores: bool = False
@@ -162,6 +181,9 @@ def dec_attn(q, k, v, *, dtype: torch.dtype,
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = _lib.library()
     _lib.count("dec_attn")
+    if (staged_unaligned(q, q.stride()[:3])
+            or any(staged_unaligned(t, _panel_strides(t)) for t in (k, v))):
+        _lib.count("dec_attn_unaligned")
     rc = lib.wca_dec_attn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(mask), out.data_ptr(),
         ptr(sc), ptr(stats), ptr(part), ptr(tickets), strides, b, h, p, s,
